@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``ionflux_torch/csrc`` (nvcc, sm_90a), drives
-the forward-simulation path at full width -- the trained 200-wide, 7-layer
-NN-f (``out/d1``) and NN-d (``out/d2``) models -- and holds every kernel
-against its plain PyTorch version on the same inputs.
+Builds the CUDA kernels from ``ionflux_torch/csrc`` (both sources, one nvcc
+each, started together; sm_90a), drives two paths of the port at full width
+and holds every kernel (five) against its plain PyTorch version on the same
+inputs.
 
-Phases:
+The forward-simulation path: the trained 200-wide, 7-layer NN-f
+(``out/d1``) and NN-d (``out/d2``) models.
   (a) device, kernel build, weights (loaded through the carry-over function),
       and ``entry()`` on the card;
-  (b)-(d) the main path with every launch counter set to 0 just before it:
+  (b)-(d) the path with every launch counter set to 0 just before it:
       ``simulate_family(backend="pallas")`` on the activation family (B = 7,
       80,001 knots), ``simulate_population`` of 64 perturbed d1 members on
       the deactivation family (9 rows padded to 16, 100,001 knots) and of 4
@@ -19,7 +20,26 @@ Phases:
       just after;
   then each kernel against its plain version (max |dy| on the gates <= 5e-3,
   no inf where the plain version is finite), the sweep against ``odeint``,
-  and the kernel and plain times with CUDA events after a warm-up;
+  and the kernel and plain times with CUDA events after a warm-up.
+
+The d0 fit (``scripts/train_d0_torch.py``), counters again set to 0 just
+before it and read just after:
+  (f) ``generate_data``: Markov ground truth on the recorded Pr3 (7 x 82,581
+      knots) and Pr5 (9 x 103,225 knots) by the chained adaptive solve, the
+      seed-0 noise, the [::10] lattice;
+  (g) one objective evaluation at the CMA-ES default population (8): 16
+      chained launches of the HH-population kernel; its SSE against an
+      independent ``odeint_chained`` evaluation of the same member (1e-3
+      relative);
+  (h) five CMA-ES generations (5 x 16 more launches), and a profiler trace
+      of one more evaluation: the kernel's share of a generation;
+  then, still counted, the fitted candidates on the first Pr3 sweep by the
+  RK4 kernel against the adaptive kernel (2e-3), and 64 perturbed d1 members
+  on one activation protocol through the population solve;
+  (i)-(k) the three kernels of this path against their plain versions: the
+  HH-population kernel at 128 lanes on a Pr3 and a Pr5 sweep with a y0 carry
+  and with a stiff lane that must die alone, the RK4 kernel, the population
+  solve; times and bounds.
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
@@ -44,8 +64,18 @@ GATE_TOL = 5e-3       # kernel vs plain: two adaptive f32 solves whose MLP
                       # sums run in different orders (a borderline accept
                       # can flip), the bound tests/test_pallas.py holds
 CURRENT_TOL = 5e-3    # fused sweep vs odeint currents (tests/test_eval.py)
-TRIPS = 4096
-P_POP, P_SUB, P_NND = 64, 8, 4
+SSE_TOL = 1e-3        # the objective's SSE vs an odeint_chained evaluation
+RK4_TOL = 2e-3        # fixed-step RK4 vs a tight adaptive solve
+                      # (tests/test_pallas.py); the adaptive kernel runs at
+                      # ORACLE's tolerances for it, since at the objective's
+                      # 1e-5 its dense output across a voltage step edge is
+                      # itself off by ~2e-3
+ORACLE = dict(rtol=1e-6, atol=1e-8, trips=4096)
+RK4_PLAIN_TOL = 1e-5  # RK4 kernel vs plain: no controller, same arithmetic
+TRIPS = 4096          # the MLP trip solves
+HH_TRIPS = 2048       # the HH-population solve, as the d0 objective runs it
+RK4_WINDOW = 10000    # knots of Pr3 sweep 0 on which the plain RK4 runs
+P_POP, P_NND = 64, 4
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): float32 on
 # the CUDA cores and HBM3 bandwidth.  The kernels run float32 FMA, no tensor
@@ -107,69 +137,106 @@ def population(leaves, members: int, seed: int):
     return pop + hh
 
 
-def bound(n_valid: int, lanes: int, macs: int, in_bytes: int):
-    """Least time (ms) for the trip solve's work, and what bounds it: 6 MLP
-    evaluations x 2 * macs FLOPs per lane per trip against the float32 peak;
-    the inputs read once and the n_valid trips of records written once
-    against HBM bandwidth."""
-    flops = n_valid * 6 * 2 * macs * lanes
-    nbytes = in_bytes + n_valid * (2 + 2 * lanes + 7 * 2 * lanes) * 4
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+def npz_leaves(path: str) -> list:
+    with np.load(path) as z:
+        return [z[f"leaf_{i}"] for i in range(len(z.files))]
+
+
+def mlp_work(leaves) -> tuple[int, int]:
+    """(MACs per MLP evaluation, number of net parameters) of a checkpoint's
+    leaves (W0, b0, W1, b1, ..., then 8 HH scalars)."""
+    sizes = [int(leaves[0].shape[0])] + [
+        int(w.shape[1]) for w in leaves[0:-8:2]]
+    macs = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    return macs, sum(int(x.size) for x in leaves[:-8])
+
+
+def reset_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from ionflux_torch.ops import fused_solve as F
+    from ionflux_torch.ops import hh_solve as H
+
+    for k in (F.fused_nnf_solve_ft, F.fused_nnf_popsweep_solve_ft,
+              F.fused_nnf_pop_solve_ft, H.fused_hh_pop_solve_ft,
+              H.fused_hh_rk4):
+        k.launches = 0
+
+
+def roofline(ops: float, nbytes: float):
+    """Least time (ms) for `ops` float32 operations and `nbytes` bytes, and
+    which of the two bounds it."""
+    t_ops, t_bytes = ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
+# One HH right-hand side: 4 expf, each counted as ONE operation, and 12
+# multiplies and adds.
+HH_RHS_OPS = 4 + 12
+
+
+def trip_bound(n_valid: int, lanes: int, rhs_ops: int, in_bytes: int):
+    """Bound of a trip solve: 6 right-hand sides of rhs_ops operations (an
+    MLP: 2 per MAC) per lane per executed trip; the inputs read once and the
+    executed trips' records (t, h, start y, 7 stages) written once."""
+    return roofline(n_valid * 6 * rhs_ops * lanes,
+                    in_bytes + n_valid * (2 + 2 * lanes + 7 * 2 * lanes) * 4)
+
+
+def check_counts(what: str, launches: dict) -> None:
+    log(f"{what}: launches {launches}")
+    for n, c in launches.items():
+        if c < 1:
+            raise RuntimeError(f"{what} never launched {n}")
+
+
+def evaluation_profile(objective, xs, secs_per_generation: float) -> None:
+    """Where one objective evaluation's time goes: a profiler trace of one
+    more evaluation (16 more launches), by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        objective(xs)
+        torch.cuda.synchronize()
+    busy = trip = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        busy += us
+        if "hh_trip_kernel" in e.key:
+            trip += us
+    if busy <= 0.0:
+        log("(h) profiler: no device time in the trace; kernel share of a "
+            "generation not measured")
+        return
+    wall = secs_per_generation * 1e3
+    log(f"(h) one evaluation (profiler trace): device busy {busy / 1e3:.3f} "
+        f"ms, of which the HH-population kernel {trip / 1e3:.3f} ms and "
+        f"phase 2 with the objective's torch ops {(busy - trip) / 1e3:.3f} "
+        f"ms; against {wall:.3f} ms per generation on the host clock "
+        f"(untraced) the device is idle {100 * (1 - busy / 1e3 / wall):.1f}%")
+
+
+def forward_path(dev, rows) -> None:
+    """Phases (a)-(d): the forward-simulation path and its two kernels."""
     from ionflux_torch import eval as E
     from ionflux_torch import protocols as P
     from ionflux_torch.entry import entry
     from ionflux_torch.models.registry import SYNTHETIC
-    from ionflux_torch.ops import _build
     from ionflux_torch.ops import fused_solve as F
     from ionflux_torch.utils.ckpt import load_pytree, params_from_leaves
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-
-    # ---- (a) device, build, weights ---------------------------------------
-    card = device_line()
-    log(f"(a) card: {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}")
-    t = time.perf_counter()
-    lib_path, build_log = _build.build()
-    log(f"(a) built {os.path.relpath(lib_path, ROOT)} in "
-        f"{time.perf_counter() - t:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("    ptxas:", line.strip())
-    _build.load_library()
 
     d1_path = os.path.join(ROOT, "out", "d1", "model.npz")
     d2_path = os.path.join(ROOT, "out", "d2", "model.npz")
     d1 = load_pytree(d1_path, "nnf", device=dev)
     d2 = load_pytree(d2_path, "nnd", device=dev)
-    with np.load(d1_path) as z:
-        d1_leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
-    with np.load(d2_path) as z:
-        d2_leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
-    sizes = [int(d1_leaves[0].shape[0])] + [
-        int(w.shape[1]) for w in d1_leaves[0:-8:2]]
-    macs = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
-    n_params = sum(int(x.size) for x in d1_leaves[:-8])
-    log(f"(a) d1/d2 MLP widths {sizes}, {macs} MACs per evaluation; d1 "
-        f"r-gate {tuple(float(x) for x in d1.rgate[4:])}, d2 base "
+    d1_leaves, d2_leaves = npz_leaves(d1_path), npz_leaves(d2_path)
+    macs, n_params = mlp_work(d1_leaves)
+    log(f"(a) d1/d2 MLP: {macs} MACs per evaluation; d1 r-gate "
+        f"{tuple(float(x) for x in d1.rgate[4:])}, d2 base "
         f"{tuple(float(x) for x in d2.hh)}")
-    leaves64 = population(d1_leaves, P_POP, 0)
-    pop64 = params_from_leaves(leaves64, "nnf", dev)
-    pop8 = params_from_leaves([x[:P_SUB] for x in leaves64[:-8]]
-                              + leaves64[-8:], "nnf", dev)
+    pop64 = params_from_leaves(population(d1_leaves, P_POP, 0), "nnf", dev)
     pop4 = params_from_leaves(population(d2_leaves, P_NND, 1), "nnd", dev)
 
     fn, args = entry(device=dev)
@@ -186,7 +253,7 @@ def main() -> int:
     log(f"protocols: activation {len(act)} x {act[0].n} knots, deactivation "
         f"{len(deact)} x {deact[0].n} knots")
 
-    # ---- (b)-(d) the main path, counted ------------------------------------
+    # ---- (b)-(d) the path, counted -----------------------------------------
     kernels = {"fused_nnf_solve_ft": F.fused_nnf_solve_ft,
                "fused_nnf_popsweep_solve_ft": F.fused_nnf_popsweep_solve_ft}
     calls = {
@@ -196,8 +263,7 @@ def main() -> int:
             "nnf", pop64, deact, ts_deact, SYNTHETIC, trips=TRIPS),
         "nnd popsweep": lambda: E.simulate_population(
             "nnd", pop4, act, ts_act, SYNTHETIC, trips=TRIPS)}
-    for k in kernels.values():
-        k.launches = 0
+    reset_counts()
     out, secs = {}, {}
     for name, call in calls.items():
         t = time.perf_counter()
@@ -206,11 +272,9 @@ def main() -> int:
         secs[name] = time.perf_counter() - t
     launches = {n: k.launches for n, k in kernels.items()}
     i_sweep, i_pop, i_nnd = out.values()
-    log(f"main path: host clock s per call (first call, synchronised) "
-        f"{secs}, launches {launches}")
-    for n, c in launches.items():
-        if c < 1:
-            raise RuntimeError(f"main path never launched {n}")
+    log(f"forward path: host clock s per call (first call, synchronised) "
+        f"{secs}")
+    check_counts("forward path", launches)
     for name, cur, shape in (("sweep", i_sweep, (7, 80001)),
                              ("popsweep", i_pop, (P_POP, 9, 100001)),
                              ("nnd popsweep", i_nnd, (P_NND, 7, 80001))):
@@ -219,8 +283,6 @@ def main() -> int:
         if not bool(torch.isfinite(cur).all()):
             raise RuntimeError(f"{name}: non-finite currents")
         log(f"{name}: currents {shape}, peak |I| {float(cur.abs().max()):.4f}")
-
-    rows = []
 
     # ---- (b) sweep kernel vs plain, vs odeint, times -----------------------
     b_act = P.stack(act)
@@ -244,7 +306,7 @@ def main() -> int:
     if not d_ode <= CURRENT_TOL:
         raise RuntimeError(f"sweep vs odeint {d_ode} > {CURRENT_TOL}")
     in_bytes = (b_act.v.numel() + n_params + 8) * 4
-    b_ms, b_by = bound(n_k[1], len(act), macs, in_bytes)
+    b_ms, b_by = trip_bound(n_k[1], len(act), 2 * macs, in_bytes)
     rows.append(dict(
         name="fused_nnf_solve_ft", route="cuda",
         source="ionflux_torch/csrc/fused_solve.cu",
@@ -252,7 +314,7 @@ def main() -> int:
         launches=launches["fused_nnf_solve_ft"], max_abs_err=err, ms=ms_k,
         plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
-    # ---- (c) popsweep kernel vs plain (P = 64 and a P = 8 subset), times ---
+    # ---- (c) popsweep kernel vs plain (P = 64), times ----------------------
     b_de = P.stack(deact)
     s = F._popsweep_setup(pop64.net, pop64.rgate, b_de.v, ts_deact, 0.0,
                           0.1, float(ts_deact[-1]), 1e-5, 1e-7, TRIPS, None,
@@ -267,22 +329,16 @@ def main() -> int:
                               o[4]) for o in (out_k, out_p)]
     err = gate_diff(f"(c) popsweep P={P_POP}", recs[0].evaluate(ts_deact),
                     recs[1].evaluate(ts_deact))
-    kw = dict(proto_dt=0.1, trips=TRIPS)
-    err = max(err, gate_diff(
-        f"(c) popsweep P={P_SUB} subset",
-        F.fused_nnf_popsweep_solve_ft(pop8.net, pop8.rgate, b_de.v, ts_deact,
-                                      **kw),
-        F.fused_nnf_popsweep_solve_ft_plain(pop8.net, pop8.rgate, b_de.v,
-                                            ts_deact, **kw)))
 
     # ---- (d) NN-d popsweep kernel vs plain ---------------------------------
+    kw = dict(proto_dt=0.1, trips=TRIPS)
     ys_k = F.fused_nnf_popsweep_solve_ft(pop4.net, pop4.hh, b_act.v, ts_act,
                                          base_hh=pop4.hh, **kw)
     ys_p = F.fused_nnf_popsweep_solve_ft_plain(pop4.net, pop4.hh, b_act.v,
                                                ts_act, base_hh=pop4.hh, **kw)
     err = max(err, gate_diff(f"(d) NN-d popsweep P={P_NND}", ys_k, ys_p))
     in_bytes = (b_de.v.numel() + P_POP * (n_params + 2 * 9) + 8) * 4
-    b_ms, b_by = bound(n_k[1], P_POP * 9, macs, in_bytes)
+    b_ms, b_by = trip_bound(n_k[1], P_POP * 9, 2 * macs, in_bytes)
     rows.append(dict(
         name="fused_nnf_popsweep_solve_ft", route="cuda",
         source="ionflux_torch/csrc/fused_solve.cu",
@@ -290,6 +346,311 @@ def main() -> int:
         launches=launches["fused_nnf_popsweep_solve_ft"], max_abs_err=err,
         ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
         library_ms=None))
+
+
+def d0_path(dev, rows) -> None:
+    """Phases (f)-(k): the d0 whole-trace CMA-ES fit and its three kernels."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_d0_torch as T
+    from ionflux_torch import protocols as P
+    from ionflux_torch.fit.cmaes import _default_popsize, cmaes
+    from ionflux_torch.models import hh_rhs
+    from ionflux_torch.models.registry import HH_B06, HHParams, SYNTHETIC
+    from ionflux_torch.ops import fused_solve as F
+    from ionflux_torch.ops import hh_solve as H
+    from ionflux_torch.solver import odeint_chained
+    from ionflux_torch.utils.ckpt import params_from_leaves
+
+    f32 = torch.float32
+    kernels = {"fused_hh_pop_solve_ft": H.fused_hh_pop_solve_ft,
+               "fused_hh_rk4": H.fused_hh_rk4,
+               "fused_nnf_pop_solve_ft": F.fused_nnf_pop_solve_ft}
+    hh_pop = H.fused_hh_pop_solve_ft
+    reset_counts()
+
+    # ---- (f) data ----------------------------------------------------------
+    t = time.perf_counter()
+    d3, d5 = T.generate_data(device=dev)
+    log(f"(f) generate_data: {d3.size} + {d5.size} points in "
+        f"{time.perf_counter() - t:.1f} s; |d| max "
+        f"{max(np.abs(d3).max(), np.abs(d5).max()):.4f}")
+    if (d3.size, d5.size) != (57806, 92902):
+        raise RuntimeError(f"data lengths {(d3.size, d5.size)}")
+    if not (np.isfinite(d3).all() and np.isfinite(d5).all()):
+        raise RuntimeError("generate_data: non-finite data")
+
+    # ---- (g) one objective evaluation --------------------------------------
+    pop = _default_popsize(len(T.P0))
+    objective = T.make_objective_fused(d3, d5, pop, trips=HH_TRIPS,
+                                       device=dev)
+    t = time.perf_counter()
+    sse0 = float(objective(T.P0[None])[0])
+    secs_eval = time.perf_counter() - t
+    log(f"(g) SSE(P0) = {sse0:.4f} at pop {pop}, trips {HH_TRIPS}: "
+        f"{hh_pop.launches} launches, {secs_eval:.3f} s (first evaluation, "
+        f"host clock)")
+    if not np.isfinite(sse0) or hh_pop.launches != 16:
+        raise RuntimeError(f"objective: SSE {sse0}, {hh_pop.launches} "
+                           f"launches (expected finite, 16)")
+    # the same member by the plain adaptive solve, chained over the sweeps
+    # and across the Pr3 -> Pr5 boundary, on the same lattice
+    t = time.perf_counter()
+    params0 = HHParams(*T.P0, *T.RGATE)
+    y = torch.tensor([0.0, 1.0], dtype=f32, device=dev)
+    sse_ref = 0.0
+    for rec, d in zip(T.RECORDINGS, (d3, d5)):
+        protos, ts, _, _ = T._sweep_protos(rec, dev)
+        ys = odeint_chained(
+            lambda tt, yy, a: hh_rhs(a[0], tt, yy, P.voltage(a[1], tt)),
+            y, ts, protos, params0, rtol=1e-6, atol=1e-8,
+            buffer_size=16384, max_steps=200_000)
+        i_sim = (ys[:, :-1, 0] * ys[:, :-1, 1]
+                 * (protos.v[:, :-1] - float(SYNTHETIC.e)))
+        i_lat = i_sim.reshape(-1)[::T.SUB].double().cpu().numpy()
+        sse_ref += float(np.sum((i_lat - d) ** 2))
+        y = ys[-1, -1]
+    rel = abs(sse0 - sse_ref) / sse_ref
+    log(f"(g) SSE(P0) by odeint_chained = {sse_ref:.4f} in "
+        f"{time.perf_counter() - t:.1f} s; relative difference {rel:.3e} "
+        f"(tol {SSE_TOL})")
+    if not rel <= SSE_TOL:
+        raise RuntimeError(f"objective vs odeint_chained: {rel} > {SSE_TOL}")
+
+    # ---- (h) the fit takes five steps --------------------------------------
+    asked = []          # each generation's candidates [pop, 4]
+
+    def watched(xs):
+        asked.append(xs.copy())
+        return objective(xs)
+
+    t = time.perf_counter()
+    res = cmaes(watched, T.P0, sigma0=0.1 * T.P0,
+                bounds=(0.1 * T.P0, 10.0 * T.P0), max_iterations=5)
+    secs_fit = time.perf_counter() - t
+    log(f"(h) cmaes: {res.iterations} generations, best SSE {res.fx:.4f} "
+        f"(first generation's best {res.history[0][1]:.4f}, SSE(P0) "
+        f"{sse0:.4f}), {secs_fit / res.iterations:.3f} s per generation "
+        f"(host clock), x = {res.x.tolist()}")
+    if not (np.isfinite(res.fx) and res.fx <= res.history[0][1]):
+        raise RuntimeError("cmaes: best SSE not finite or above the first "
+                           "generation's best")
+    if hh_pop.launches != 16 * 6:
+        raise RuntimeError(f"cmaes: {hh_pop.launches} launches after the "
+                           f"fit (expected 96)")
+    evaluation_profile(objective, asked[-1], secs_fit / res.iterations)
+
+    # ---- still the path: the last generation by RK4, and the population
+    #      solve of 64 member nets on one protocol ---------------------------
+    protos3, _, _, period3 = T._sweep_protos(T.RECORDINGS[0], dev)
+    protos5, _, _, period5 = T._sweep_protos(T.RECORDINGS[1], dev)
+    dt = float(protos3.dt[0])
+    n_out = period3 // 10 + 1
+    ts_ms = torch.arange(n_out, dtype=f32, device=dev)
+    rg = [float(x) for x in T.RGATE]
+    last8 = torch.tensor(np.concatenate(
+        [asked[-1], np.tile(rg, (pop, 1))], axis=1), dtype=f32, device=dev)
+    ys_rk = H.fused_hh_rk4(last8, protos3.v[0], proto_dt=dt, dt_out=1.0,
+                           n_out=n_out, n_sub=10)
+    ys_ad = hh_pop(last8, protos3.v[0], ts_ms, proto_dt=dt, **ORACLE)
+    d_rk = float((ys_rk - ys_ad).abs().max())
+    log(f"last generation on Pr3 sweep 0: RK4 kernel vs adaptive kernel max "
+        f"|dy| = {d_rk:.3e} (tol {RK4_TOL})")
+    if not d_rk <= RK4_TOL:
+        raise RuntimeError(f"RK4 vs adaptive {d_rk} > {RK4_TOL}")
+
+    d1_leaves = npz_leaves(os.path.join(ROOT, "out", "d1", "model.npz"))
+    macs, n_params = mlp_work(d1_leaves)
+    pop64 = params_from_leaves(population(d1_leaves, P_POP, 0), "nnf", dev)
+    act20 = P.activation_protocol(20.0, 0.1, device=dev)
+    ts_act = act20.times()
+    pop_kw = dict(proto_dt=0.1, rtol=1e-5, atol=1e-7, trips=TRIPS)
+    t = time.perf_counter()
+    ys_pop = F.fused_nnf_pop_solve_ft(pop64.net.layers, pop64.rgate, act20.v,
+                                      ts_act, **pop_kw)
+    torch.cuda.synchronize()
+    log(f"population solve: {tuple(ys_pop.shape)} gates in "
+        f"{time.perf_counter() - t:.3f} s (first call, host clock)")
+    if (tuple(ys_pop.shape) != (P_POP, 80001, 2)
+            or not bool(torch.isfinite(ys_pop).all())):
+        raise RuntimeError("population solve: misshapen or non-finite")
+    launches = {n: k.launches for n, k in kernels.items()}
+    check_counts("d0 path", launches)
+
+    # ---- (i) HH-population kernel vs plain at 128 lanes --------------------
+    base = np.array([float(x) for x in HH_B06])
+    pop128 = torch.tensor(
+        base[None] * np.exp(0.1 * np.random.RandomState(0).randn(128, 8)),
+        dtype=f32, device=dev)
+    lat3 = torch.arange(0, period3 + 1, T.SUB, dtype=f32, device=dev) * dt
+    lat5 = torch.arange(0, period5 + 1, T.SUB, dtype=f32, device=dev) * dt
+
+    def hh_pair(name, params, v, ts, t_end, y0, trips, reps):
+        kw = dict(proto_t0=0.0, proto_dt=dt, t_end=t_end, rtol=1e-5,
+                  atol=1e-7, trips=trips)
+        ms_k, out_k = cuda_ms(lambda: H._hh_pop_solve(
+            params, v, y0, plain=False, **kw), reps=reps)
+        ms_p, out_p = cuda_ms(lambda: H._hh_pop_solve(
+            params, v, y0, plain=True, **kw), reps=1)
+        n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
+        same = all(torch.equal(a[:n_p[1]], b[:n_p[1]])
+                   for a, b in zip(out_k[:3], out_p[:3]))
+        log(f"{name}: n_acc/n_valid kernel {n_k}, plain {n_p} (n_acc "
+            f"{'equal' if n_k[0] == n_p[0] else 'differs'}; records "
+            f"{'bit-identical' if same else 'differ'}); kernel {ms_k:.3f} "
+            f"ms, plain {ms_p:.1f} ms")
+        if n_k[1] != n_p[1]:
+            raise RuntimeError(f"{name}: n_valid {n_k[1]} != {n_p[1]}")
+        ys = [F._dense_eval_ft(*o[:3], o[3][0], o[3][1], ts, lane_ok=o[4])
+              for o in (out_k, out_p)]
+        return gate_diff(name, *ys), ms_k, ms_p, n_k, out_k[4], out_p[4], ys
+
+    n_launch = hh_pop.launches
+    err3, ms_k, ms_p, n_k, _, _, ys = hh_pair(
+        "(i) HH pop B=128, Pr3 sweep 0", pop128, protos3.v[0], lat3,
+        period3 * dt, None, HH_TRIPS, 3)
+    y_carry = ys[0][:, -1, :].contiguous()
+    in_bytes = (protos3.v[0].numel() + pop128.numel() + 2 * 128) * 4
+    b_ms, b_by = trip_bound(n_k[1], 128, HH_RHS_OPS, in_bytes)
+    # (these 128 sets spread the r-gate's rates too, which the fit keeps
+    # fixed: the fastest lane's stability limit at -120 mV holds the shared
+    # step near 3 ms for 6 s, so this sweep needs twice the fit's budget)
+    err5, *_ = hh_pair("(i) HH pop B=128, Pr5 sweep 0 with the y0 carry",
+                       pop128, protos5.v[0], lat5, period5 * dt, y_carry,
+                       2 * HH_TRIPS, 1)
+    # the shape the fit gives the kernel: 8 lanes, the last generation
+    err8, ms8, *_ = hh_pair("(i) HH pop B=8 (the fit's last generation)",
+                            last8, protos3.v[0], lat3, period3 * dt, None,
+                            HH_TRIPS, 3)
+    # a stiff lane (p2 = 1.0: k1 ~ e^20 at the +20 mV test step of Pr3 sweep
+    # 4) pins the shared step; it must die alone, in both versions
+    stiff = pop128.clone()
+    stiff[1, 1] = 1.0
+    errs, _, _, n_s, alive_k, alive_p, _ = hh_pair(
+        "(i) HH pop B=128 with a stiff lane, Pr3 sweep 4", stiff,
+        protos3.v[4], lat3, period3 * dt, None, 2 * HH_TRIPS, 1)
+    want = torch.ones(128, dtype=torch.bool, device=dev)
+    want[1] = False
+    if not (torch.equal(alive_k, want) and torch.equal(alive_p, want)):
+        raise RuntimeError(
+            f"stiff lane: dead lanes kernel "
+            f"{(~alive_k).nonzero().flatten().tolist()}, plain "
+            f"{(~alive_p).nonzero().flatten().tolist()}; expected [1]")
+    log(f"(i) stiff lane 1 dead alone in both versions after "
+        f"{n_s[1]} trips")
+    if hh_pop.launches - n_launch != 4 + 2 + 4 + 2:
+        raise RuntimeError("HH pop wrapper miscounted its launches")
+    rows.append(dict(
+        name="fused_hh_pop_solve_ft", route="cuda",
+        source="ionflux_torch/csrc/hh_solve.cu",
+        replaces="ionflux/ops/pallas_solve.py:1015",
+        launches=launches["fused_hh_pop_solve_ft"],
+        max_abs_err=max(err3, err5, err8, errs), ms=ms_k, plain_ms=ms_p,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, ms_at_8_lanes=ms8))
+
+    # ---- (j) RK4 kernel vs the adaptive kernel and vs plain ----------------
+    rk = dict(proto_dt=dt, dt_out=1.0, n_sub=10)
+    ms_k, ys_rk = cuda_ms(lambda: H.fused_hh_rk4(
+        pop128, protos3.v[0], n_out=n_out, **rk), reps=3)
+    ys_ad = hh_pop(pop128, protos3.v[0], ts_ms, proto_dt=dt, **ORACLE)
+    d_rk = float((ys_rk - ys_ad).abs().max())
+    log(f"(j) RK4 B=128, {(n_out - 1) * 10} substeps: kernel {ms_k:.3f} ms; "
+        f"vs adaptive kernel max |dy| = {d_rk:.3e} (tol {RK4_TOL})")
+    if not d_rk <= RK4_TOL:
+        raise RuntimeError(f"RK4 vs adaptive {d_rk} > {RK4_TOL}")
+    # the plain version is one host-paced chain per substep: hold it on the
+    # window with the leak step and the onset of the test step
+    win = protos3.v[0][:RK4_WINDOW + 1].contiguous()
+    n_win = RK4_WINDOW // 10 + 1
+    ms_w, ys_w = cuda_ms(lambda: H.fused_hh_rk4(
+        pop128, win, n_out=n_win, **rk), reps=1)
+    ms_p, ys_p = cuda_ms(lambda: H.fused_hh_rk4_plain(
+        pop128, win, n_out=n_win, **rk), reps=1)
+    err = float((ys_w - ys_p).abs().max())
+    log(f"(j) RK4 on the first {RK4_WINDOW + 1} knots: kernel {ms_w:.3f} ms, "
+        f"plain {ms_p:.1f} ms, max |dy| kernel vs plain = {err:.3e} (tol "
+        f"{RK4_PLAIN_TOL})")
+    # and at the lane count the path gave it (the last generation's 8)
+    ys_p8 = H.fused_hh_rk4_plain(last8, win, n_out=n_win, **rk)
+    err8 = float((H.fused_hh_rk4(last8, win, n_out=n_win, **rk)
+                  - ys_p8).abs().max())
+    log(f"(j) RK4 B={pop} on the same window: max |dy| kernel vs plain = "
+        f"{err8:.3e} (tol {RK4_PLAIN_TOL})")
+    if not bool(torch.isfinite(ys_p8).all()):
+        raise RuntimeError("RK4 plain at the fit's lane count: non-finite")
+    err = max(err, err8)
+    if not (bool(torch.isfinite(ys_p).all()) and err <= RK4_PLAIN_TOL):
+        raise RuntimeError(f"RK4 kernel vs plain {err} > {RK4_PLAIN_TOL}")
+    # per substep and lane: 4 right-hand sides and 26 multiplies and adds in
+    # the stage and final sums of the two gates
+    substeps = (n_out - 1) * 10
+    b_ms, b_by = roofline(
+        substeps * 128 * (4 * HH_RHS_OPS + 26),
+        (protos3.v[0].numel() + pop128.numel() + n_out * 128 * 2) * 4)
+    rows.append(dict(
+        name="fused_hh_rk4", route="cuda",
+        source="ionflux_torch/csrc/hh_solve.cu",
+        replaces="ionflux/ops/pallas_rk4.py:87",
+        launches=launches["fused_hh_rk4"], max_abs_err=err, ms=ms_k,
+        plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        plain_ms_covers=f"{n_win - 1} of {n_out - 1} output intervals"))
+
+    # ---- (k) population solve (Q = 1 case of the trip kernel) vs plain -----
+    s = F._pop_setup(pop64.net.layers, pop64.rgate, act20.v, ts_act, 0.0,
+                     0.1, float(ts_act[-1]), 1e-5, 1e-7, TRIPS)
+    ms_k, out_k = cuda_ms(lambda: F._trip_solve_cuda(s), reps=3)
+    ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1)
+    n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
+    log(f"(k) population solve P={P_POP}: n_acc/n_valid kernel {n_k}, plain "
+        f"{n_p}; kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
+    ys_p = F.fused_nnf_pop_solve_ft_plain(pop64.net.layers, pop64.rgate,
+                                          act20.v, ts_act, **pop_kw)
+    if not bool(torch.isfinite(ys_p).all()):
+        raise RuntimeError("population solve, plain: non-finite")
+    err = gate_diff(f"(k) population solve P={P_POP}", ys_pop, ys_p)
+    in_bytes = (act20.v.numel() + P_POP * n_params + 8) * 4
+    b_ms, b_by = trip_bound(n_k[1], P_POP, 2 * macs, in_bytes)
+    rows.append(dict(
+        name="fused_nnf_pop_solve_ft", route="cuda",
+        source="ionflux_torch/csrc/fused_solve.cu",
+        replaces="ionflux/ops/pallas_solve.py:760",
+        launches=launches["fused_nnf_pop_solve_ft"], max_abs_err=err,
+        ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from ionflux_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+
+    # ---- (a) device, build -------------------------------------------------
+    card = device_line()
+    log(f"(a) card: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    t = time.perf_counter()
+    built = _build.build()
+    log(f"(a) built {[os.path.relpath(p, ROOT) for p, _ in built.values()]} "
+        f"in {time.perf_counter() - t:.1f} s")
+    for name, (_, build_log) in built.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"    ptxas {name}:", line.strip())
+        _build.load_library(name)
+
+    rows = []
+    forward_path(dev, rows)
+    log(f"forward path done at {time.perf_counter() - t_start:.0f} s")
+    d0_path(dev, rows)
+    log(f"d0 path done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- (e) results -------------------------------------------------------
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,5 +1,11 @@
 from ionflux_torch.models import registry
 from ionflux_torch.models.hh import a_gate_rhs, hh_rates, hh_rhs, r_gate_rhs
+from ionflux_torch.models.markov import (
+    MARKOV_Y0_INACT,
+    MARKOV_Y0_REST,
+    markov_rates,
+    markov_rhs,
+)
 from ionflux_torch.models.nn import (
     MLP,
     NNdParams,
@@ -20,6 +26,10 @@ __all__ = [
     "hh_rates",
     "a_gate_rhs",
     "r_gate_rhs",
+    "markov_rhs",
+    "markov_rates",
+    "MARKOV_Y0_REST",
+    "MARKOV_Y0_INACT",
     "MLP",
     "NNfParams",
     "NNdParams",

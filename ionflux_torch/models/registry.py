@@ -29,8 +29,9 @@ class HHParams(NamedTuple):
 
 
 class MarkovParams(NamedTuple):
-    """12-parameter 3-state Markov chain; only its r-gate rates (p5-p8) are
-    used in this package, to define ``HH_D_RGATE`` and ``HH_D2_BASE``."""
+    """12-parameter 3-state Markov chain (``models/markov.py``): a1, b1
+    from p1-p4, the r-gate rates bh, ah from p5-p8 (also ``HH_D_RGATE`` and
+    ``HH_D2_BASE``), a2, b2 from p9-p12."""
 
     p1: float
     p2: float

@@ -7,6 +7,9 @@ import torch
 
 from ionflux_torch.models.registry import Constants
 
+# Observation noise (nA) of the synthetic studies.
+NOISE_SIGMA = 0.1
+
 
 def gate_current(y: torch.Tensor, v: torch.Tensor, c: Constants) -> torch.Tensor:
     """I = g * a * r * (V - E). y: [..., 2] -> [...]."""

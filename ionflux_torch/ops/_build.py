@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/fused_solve.cu`` has a plain C interface.  At first use it is
-compiled by ``nvcc`` for ``sm_90a`` into ``ionflux_torch/_build/`` (listed
-in ``.gitignore``) under a name that carries the source's hash, so an edited
-source is rebuilt, and loaded with ``ctypes``.  Nothing here runs at import
-time.  No ``--use_fast_math``: the kernel's controller must follow the
-plain version's f32 arithmetic.
+Every source under ``csrc/`` named in ``SOURCES`` has a plain C interface.
+At first use each is compiled by ``nvcc`` for ``sm_90a`` into a library of
+its own in ``ionflux_torch/_build/`` (listed in ``.gitignore``), under a
+name that carries the source's hash, so an edited source is rebuilt, and is
+loaded with ``ctypes``.  ``build()`` compiles all missing libraries at once,
+one ``nvcc`` process per source, started together.  Nothing here runs at
+import time.  No ``--use_fast_math``: the kernels' controllers must follow
+the plain versions' f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ import subprocess
 import tempfile
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_solve.cu")
+# library name -> source; fused_solve: the MLP trip kernel (sweep, popsweep,
+# population); hh_solve: the HH population trip kernel and the HH RK4 kernel
+SOURCES = {
+    "fused_solve": os.path.join(_PKG, "csrc", "fused_solve.cu"),
+    "hh_solve": os.path.join(_PKG, "csrc", "hh_solve.cu"),
+}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -33,52 +40,92 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as fh:
+def library_path(name: str) -> str:
+    with open(SOURCES[name], "rb") as fh:
         digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libfused_solve_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
-def build() -> tuple[str, str]:
-    """Compile the source if its hashed library is missing.  Returns (path,
-    compiler log); the log holds ptxas' register and shared-memory report
-    when a build ran, else is empty."""
-    path = library_path()
-    if os.path.exists(path):
-        return path, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+def build(names=None) -> dict[str, tuple[str, str]]:
+    """Compile every named source (all of ``SOURCES`` by default) whose
+    hashed library is missing, in parallel.  Returns {name: (path, compiler
+    log)}; the log holds ptxas' register and shared-memory report when a
+    build ran, else is empty."""
+    names = list(SOURCES) if names is None else list(names)
+    out, running = {}, {}
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)   # atomic: a concurrent build never sees half
+        for name in names:
+            path = library_path(name)
+            if os.path.exists(path):
+                out[name] = (path, "")
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            running[name] = (path, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, (path, tmp, proc) in running.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {SOURCES[name]} "
+                                   f"({proc.returncode}):\n{log}")
+            os.replace(tmp, path)  # atomic: a concurrent build never sees half
+            out[name] = (path, log)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path, proc.stdout + proc.stderr
+        for _, tmp, proc in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return out
 
 
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    """The built kernel library, with every function's C signature set."""
-    path, log = build()
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FLOATS = ctypes.POINTER(ctypes.c_float)
+
+# library name -> {function: argtypes}; every function returns a cudaError_t
+_SIGNATURES = {
+    "fused_solve": {
+        "ionflux_trip_solve": [
+            _PTR, _PTR, _PTR, _I64,             # vpad, y0, w, w_stride
+            _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # rec_sc, rec_y, rec_k, n_out,
+                                                # alive_out, partial
+            ctypes.POINTER(ctypes.c_int), _I32,  # sizes, n_layers
+            _I32, _I32, _I32, _I32, _I32, _I32,  # p, q, n_pad, rt, trips,
+                                                # block
+            _I32, _I32,                         # cull, has_base
+            _FLOATS, _PTR,                      # scalars, stream
+        ],
+    },
+    "hh_solve": {
+        "ionflux_hh_trip_solve": [
+            _PTR, _PTR, _PTR,                   # vpad, params, y0
+            _PTR, _PTR, _PTR, _PTR, _PTR,       # rec_sc, rec_y, rec_k, n_out,
+                                                # alive_out
+            _I32, _I32, _I32, _I32,             # b, n_pad, trips, block
+            _FLOATS, _PTR,                      # scalars, stream
+        ],
+        "ionflux_hh_rk4": [
+            _PTR, _PTR, _PTR,                   # v, params, out
+            _I32, _I32, _I32, _I32,             # b, n_knots, n_out, n_sub
+            _FLOATS, _PTR,                      # scalars, stream
+        ],
+    },
+}
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """The built library of one source, with every function's C signature
+    set."""
+    path, log = build([name])[name]
     lib = ctypes.CDLL(path)
     lib.build_log = log
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ionflux_trip_solve.argtypes = [
-        ptr, ptr, ptr, i64,                     # vpad, y0, w, w_stride
-        ptr, ptr, ptr, ptr, ptr, ptr,           # rec_sc, rec_y, rec_k, n_out,
-                                                # alive_out, partial
-        ctypes.POINTER(ctypes.c_int), i32,      # sizes, n_layers
-        i32, i32, i32, i32, i32, i32,           # p, q, n_pad, rt, trips, block
-        i32, i32,                               # cull, has_base
-        ctypes.POINTER(ctypes.c_float), ptr,    # scalars, stream
-    ]
-    lib.ionflux_trip_solve.restype = ctypes.c_int
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     lib.ionflux_error_string.argtypes = [ctypes.c_int]
     lib.ionflux_error_string.restype = ctypes.c_char_p
     return lib

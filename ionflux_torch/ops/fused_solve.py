@@ -1,5 +1,5 @@
 """Fused fixed-trip DP5(4) solves of NN-f/NN-d gate models, for many lanes
-on one shared step controller (counterpart of the two main-path kernels of
+on one shared step controller (counterpart of three kernels of
 ``ionflux/ops/pallas_solve.py``).
 
 - ``fused_nnf_solve_ft`` (replaces ``pallas_solve.py::fused_nnf_solve_ft``):
@@ -7,10 +7,16 @@ on one shared step controller (counterpart of the two main-path kernels of
 - ``fused_nnf_popsweep_solve_ft`` (replaces
   ``pallas_solve.py::fused_nnf_popsweep_solve_ft``): P member MLPs x Q
   protocols, with a y0 carry and the pace cull.
+- ``fused_nnf_pop_solve_ft`` (replaces
+  ``pallas_solve.py::fused_nnf_pop_solve_ft``): P member MLPs on ONE shared
+  protocol, from rest, no cull.
 
-Both run one trip algorithm; the sweep is the popsweep case with P = 1 and
-no cull.  A trip attempts one step for every lane at the launch's shared
-step size and accepts it when the worst LIVE lane's error ratio is <= 1.
+All run one trip algorithm; the sweep is the popsweep case with P = 1 and
+no cull, the population solve its case with Q = 1 and no cull.  The trip
+loop itself (``_trip_loop_plain``) takes any right-hand side, and also
+serves the HH population solve of ``ops/hh_solve.py``.  A trip attempts one
+step for every lane at the launch's shared step size and accepts it when the
+worst LIVE lane's error ratio is <= 1.
 A lane that is non-finite, or still fails at h <= 2e-7, dies: it freezes,
 leaves the controller and evaluates to inf.  Trips run in blocks; the solve
 stops early only at a block end.  Every trip records its own attempt
@@ -142,25 +148,17 @@ def _gate_tuples(rgate: HHParams, base_hh: HHParams | None):
 
 
 def _trip_solve_plain(s: _Setup):
-    """The fixed-trip algorithm in PyTorch ops, in float32.
-
-    Returns (rec_sc [trips, 2], rec_y [trips, P, Q, 2],
-    rec_k [trips, 7, P, Q, 2], n_out int32 [2] = (n_acc or its shortfall
-    code, n_valid), alive bool [P, Q]).  The one host read is the early-exit
-    test at each block start."""
+    """The fixed-trip algorithm in PyTorch ops, in float32, for the MLP
+    gate models.  Returns what ``_trip_loop_plain`` returns."""
     f32 = torch.float32
     dev = s.vpad.device
     if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("the plain trip solve is float32; set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
-    p, q = s.y0.shape[:2]
+    p = s.y0.shape[0]
     n_pad = s.vpad.shape[1]
     p5, p6, p7, p8 = s.gate
     inv_dt = 1.0 / s.dt_knot
-    A = [[float(x) for x in row] for row in _A]
-    C = [float(x) for x in _C]
-    BS = [float(x) for x in _B_SOL]
-    BE = [float(x) for x in _B_ERR]
     if s.bf16:
         ws = [w.to(torch.bfloat16).to(f32) for w, _ in s.layers]
     else:
@@ -200,18 +198,45 @@ def _trip_solve_plain(s: _Setup):
         drdt = -k3[None] * r + k4[None] * (1.0 - r)
         return torch.stack([dadt, drdt], dim=-1)
 
-    def rhs_all(t, y):
-        return rhs(voltage(t), y)
+    return _trip_loop_plain(
+        lambda t, y: rhs(voltage(t), y), s.y0, t0=s.t0, t_end=s.t_end,
+        dt_knot=s.dt_knot, rtol=s.rtol, atol=s.atol, trips=s.trips,
+        block=s.block, cull="step" if s.cull else None)
 
-    t = torch.tensor(s.t0, dtype=f32, device=dev)
-    f0 = rhs_all(t, s.y0)
+
+def _trip_loop_plain(rhs_all, y0, *, t0: float, t_end: float, dt_knot: float,
+                     rtol: float, atol: float, trips: int, block: int,
+                     cull: str | None):
+    """The trip loop itself, for any right-hand side ``rhs_all(t, y)`` over
+    lanes y [P, Q, 2] (t a 0-dim f32 tensor).
+
+    ``cull`` names the pace-cull rule applied at block ends: None, "step"
+    (the popsweep's: a lane whose error-implied step cannot make the
+    remaining pace) or "ratio" (the HH population's: a lane whose last
+    error ratio in the block is > 0.01, i.e. one that binds the shared
+    controller).  A candidate in two blocks in a row is culled.
+
+    Returns (rec_sc [trips, 2], rec_y [trips, P, Q, 2],
+    rec_k [trips, 7, P, Q, 2], n_out int32 [2] = (n_acc or its shortfall
+    code, n_valid), alive bool [P, Q]).  The one host read is the early-exit
+    test at each block start."""
+    f32 = torch.float32
+    dev = y0.device
+    p, q = y0.shape[:2]
+    A = [[float(x) for x in row] for row in _A]
+    C = [float(x) for x in _C]
+    BS = [float(x) for x in _B_SOL]
+    BE = [float(x) for x in _B_ERR]
+
+    t = torch.tensor(t0, dtype=f32, device=dev)
+    f0 = rhs_all(t, y0)
     # lanes arriving non-finite (a chained carry marks dead lanes NaN), or
     # whose RHS is non-finite at the start, are dead from the start and
     # reset to rest so the RHS stays finite
-    alive = (torch.isfinite(s.y0).all(-1) & torch.isfinite(f0).all(-1))
-    y = torch.where(alive[..., None], s.y0, _rest(p, q, dev))
+    alive = (torch.isfinite(y0).all(-1) & torch.isfinite(f0).all(-1))
+    y = torch.where(alive[..., None], y0, _rest(p, q, dev))
     f = torch.where(alive[..., None], f0, torch.zeros_like(f0))
-    h = torch.tensor(s.dt_knot * 10.0, dtype=f32, device=dev)
+    h = torch.tensor(dt_knot * 10.0, dtype=f32, device=dev)
     n_acc = torch.zeros((), dtype=torch.int32, device=dev)
     r_prev = torch.zeros((p, q), dtype=f32, device=dev)
     pend = torch.zeros((p, q), dtype=torch.bool, device=dev)
@@ -220,15 +245,15 @@ def _trip_solve_plain(s: _Setup):
     up = torch.tensor(_MAXF, dtype=f32, device=dev)
     one = torch.ones((), dtype=f32, device=dev)
 
-    rec_sc = torch.zeros((s.trips, 2), dtype=f32, device=dev)
-    rec_y = torch.zeros((s.trips, p, q, 2), dtype=f32, device=dev)
-    rec_k = torch.zeros((s.trips, 7, p, q, 2), dtype=f32, device=dev)
-    n_blocks = s.trips // s.block
+    rec_sc = torch.zeros((trips, 2), dtype=f32, device=dev)
+    rec_y = torch.zeros((trips, p, q, 2), dtype=f32, device=dev)
+    rec_k = torch.zeros((trips, 7, p, q, 2), dtype=f32, device=dev)
+    n_blocks = trips // block
     blk = 0
-    while blk < n_blocks and bool((t < s.t_end) & alive.any()):
-        for j in range(s.block):
-            i = blk * s.block + j
-            h_eff = torch.clamp(torch.minimum(h, s.t_end - t), min=1e-8)
+    while blk < n_blocks and bool((t < t_end) & alive.any()):
+        for j in range(block):
+            i = blk * block + j
+            h_eff = torch.clamp(torch.minimum(h, t_end - t), min=1e-8)
             ks = [f]
             for si in range(1, 7):
                 yi = y
@@ -243,8 +268,7 @@ def _trip_solve_plain(s: _Setup):
                     y1 = y1 + (h_eff * BS[sj]) * ks[sj]
                 if BE[sj] != 0.0:
                     err = err + (h_eff * BE[sj]) * ks[sj]
-            scale = s.atol + s.rtol * torch.maximum(torch.abs(y),
-                                                    torch.abs(y1))
+            scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y1))
             r = torch.sqrt(torch.mean(torch.square(err / scale), dim=-1))
             # NaN-poison r with scale*0 so a non-finite y1 reads as bad too
             r = r + (scale[..., 0] + scale[..., 1]) * 0.0
@@ -266,27 +290,30 @@ def _trip_solve_plain(s: _Setup):
             h = h_eff * torch.minimum(torch.clamp(factor, min=_MINF),
                                       torch.where(accept, up, one))
             r_prev = r_c
-        if s.cull:
+        if cull is not None:
             # pace cull: once half the trips are spent and t lags the trip
-            # fraction by > 0.3, a lane whose error-implied step cannot make
-            # the remaining pace is a candidate; two blocks in a row kill it
-            spent = torch.tensor(float((blk + 1) * s.block), dtype=f32,
+            # fraction by > 0.3, a lane that holds the launch back is a
+            # candidate; two blocks in a row kill it
+            spent = torch.tensor(float((blk + 1) * block), dtype=f32,
                                  device=dev)
-            frac_spent = spent / float(s.trips)
-            t_frac = (t - s.t0) / (s.t_end - s.t0)
-            pace = (s.t_end - t) / torch.clamp(float(s.trips) - spent,
-                                               min=1.0)
-            h_lane = h * torch.exp(-0.2 * torch.log(
-                torch.clamp(r_prev, min=1e-30)))
+            frac_spent = spent / float(trips)
+            t_frac = (t - t0) / (t_end - t0)
             behind = (frac_spent >= 0.5) & (t_frac < frac_spent - 0.3)
-            cand = behind & (h_lane < 0.3 * pace)
+            if cull == "step":
+                pace = (t_end - t) / torch.clamp(float(trips) - spent,
+                                                 min=1.0)
+                h_lane = h * torch.exp(-0.2 * torch.log(
+                    torch.clamp(r_prev, min=1e-30)))
+                cand = behind & (h_lane < 0.3 * pace)
+            else:
+                cand = behind & (r_prev > 0.01)
             alive = alive & ~(cand & pend)
             pend = cand
         blk += 1
-    ok = t >= s.t_end
+    ok = t >= t_end
     n_out = torch.stack([
         torch.where(ok, n_acc, -torch.clamp(n_acc, min=1)),
-        torch.tensor(blk * s.block, dtype=torch.int32, device=dev)])
+        torch.tensor(blk * block, dtype=torch.int32, device=dev)])
     return rec_sc, rec_y, rec_k, n_out, alive
 
 
@@ -308,7 +335,7 @@ def _trip_solve_cuda(s: _Setup):
         raise ValueError("the CUDA kernel takes at most 16 layers")
     from ionflux_torch.ops._build import load_library
 
-    lib = load_library()
+    lib = load_library("fused_solve")
     dev = s.vpad.device
     p, q = s.y0.shape[:2]
     sizes = [s.layers[0][0].shape[1]] + [w.shape[2] for w, _ in s.layers]
@@ -632,3 +659,79 @@ def fused_nnf_popsweep_solve_ft_plain(
                      trips=trips, base_hh=base_hh, y0=y0,
                      return_records=return_records, cull=cull,
                      mxu_bf16=mxu_bf16, q_split=q_split, plain=True)
+
+
+# ---------------------------------------------------------------------------
+# B4: the population solve (P member nets on ONE shared protocol)
+# ---------------------------------------------------------------------------
+
+
+def _pop_setup(nets, rgate, proto_v, ts, proto_t0, proto_dt, t_end, rtol,
+               atol, trips) -> _Setup:
+    _check_f32("proto_v", proto_v, 1)
+    layers = _layers(nets)
+    dev = proto_v.device
+    _check_layers(layers, member_axis=True, device=dev)
+    p = layers[0][0].shape[0]
+    if p > 128:
+        raise ValueError(f"the population solve takes at most 128 members "
+                         f"(got B={p})")
+    if trips % SWEEP_BLOCK:
+        raise ValueError(f"trips must be a multiple of {SWEEP_BLOCK}, "
+                         f"got {trips}")
+    gate, _ = _gate_tuples(rgate, None)
+    return _Setup(
+        layers=layers, vpad=_pad_knots(proto_v[None]), y0=_rest(p, 1, dev),
+        gate=gate, base_a=(), t0=float(proto_t0), dt_knot=float(proto_dt),
+        t_end=float(t_end) if t_end is not None else float(ts[-1]),
+        rtol=float(rtol), atol=float(atol), trips=int(trips),
+        block=SWEEP_BLOCK, cull=False)
+
+
+def _pop(nets, rgate, proto_v, ts, *, proto_t0, proto_dt, t_end, rtol, atol,
+         trips, plain):
+    s = _pop_setup(nets, rgate, proto_v, ts, proto_t0, proto_dt, t_end, rtol,
+                   atol, trips)
+    if plain or not proto_v.is_cuda:
+        out = _trip_solve_plain(s)
+    else:
+        out = _trip_solve_cuda(s)
+        fused_nnf_pop_solve_ft.launches += 1
+    rec_sc, rec_y, rec_k, n_out, alive = out
+    ys = _dense_eval_popsweep_ft(rec_sc, rec_y, rec_k, n_out[0], n_out[1],
+                                 ts)[:, 0]
+    return torch.where(alive[:, 0, None, None], ys,
+                       torch.full_like(ys, float("inf")))
+
+
+def fused_nnf_pop_solve_ft(nets, rgate: HHParams, proto_v: torch.Tensor,
+                           ts: torch.Tensor, *, proto_t0: float = 0.0,
+                           proto_dt: float = 0.1, t_end: float | None = None,
+                           rtol: float = 1e-5, atol: float = 1e-7,
+                           trips: int = 2048) -> torch.Tensor:
+    """Fixed-trip fused solve of B <= 128 member nets (W [B, i, o],
+    b [B, o]) on ONE shared protocol ``proto_v`` [N], from rest: ys
+    [B, T, 2].  ``trips`` must be a multiple of 256.  Divergence is isolated
+    per member: a divergent net freezes, leaves the shared controller and
+    returns inf alone.  CUDA tensors run the kernel (the trip kernel at
+    Q = 1, one thread block per member); CPU tensors run
+    ``fused_nnf_pop_solve_ft_plain``."""
+    return _pop(nets, rgate, proto_v, ts, proto_t0=proto_t0,
+                proto_dt=proto_dt, t_end=t_end, rtol=rtol, atol=atol,
+                trips=trips, plain=False)
+
+
+fused_nnf_pop_solve_ft.launches = 0
+
+
+def fused_nnf_pop_solve_ft_plain(nets, rgate: HHParams,
+                                 proto_v: torch.Tensor, ts: torch.Tensor, *,
+                                 proto_t0: float = 0.0, proto_dt: float = 0.1,
+                                 t_end: float | None = None,
+                                 rtol: float = 1e-5, atol: float = 1e-7,
+                                 trips: int = 2048) -> torch.Tensor:
+    """The plain PyTorch version of ``fused_nnf_pop_solve_ft``, on any
+    device."""
+    return _pop(nets, rgate, proto_v, ts, proto_t0=proto_t0,
+                proto_dt=proto_dt, t_end=t_end, rtol=rtol, atol=atol,
+                trips=trips, plain=True)

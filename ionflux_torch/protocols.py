@@ -61,6 +61,21 @@ def _make(v: np.ndarray, dt_ms: float, device) -> Protocol:
                     torch.as_tensor(np.asarray(v, np.float32), device=device))
 
 
+def from_time_series(t: np.ndarray, v: np.ndarray, dtype=torch.float32,
+                     device=None) -> Protocol:
+    """A Protocol from a time series that must lie on a uniform grid (all
+    the study's protocols do)."""
+    device = resolve_device(device)
+    t = np.asarray(t, dtype=np.float64)
+    dts = np.diff(t)
+    dt = float(np.median(dts))
+    if not np.allclose(dts, dt, rtol=1e-6, atol=1e-9):
+        raise ValueError("protocol time grid is not uniform")
+    return Protocol(torch.tensor(t[0], dtype=dtype, device=device),
+                    torch.tensor(dt, dtype=dtype, device=device),
+                    torch.as_tensor(np.asarray(v), device=device).to(dtype))
+
+
 ACTIVATION_STEPS_MV = (-60.0, -40.0, -20.0, 0.0, 20.0, 40.0, 60.0)
 DEACTIVATION_STEPS_MV = (
     -120.0, -110.0, -100.0, -90.0, -80.0, -70.0, -60.0, -50.0, -40.0,

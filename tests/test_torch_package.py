@@ -18,9 +18,11 @@ import pytest
 import torch
 
 from ionflux_torch import protocols as TP
+from ionflux_torch import protorec as TRec
 from ionflux_torch.models import nn as TN
 from ionflux_torch.models import registry as TR
 from ionflux_torch.ops import fused_solve as TK
+from ionflux_torch.ops import hh_solve as TH
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,8 +43,8 @@ def _protos(levels=(-40.0, 20.0), device="cpu"):
 
 
 def test_port_imports_neither_jax_nor_ionflux():
-    """Every module of the port, and chip_smoke.py, imported in a fresh
-    interpreter: neither jax nor ionflux is loaded."""
+    """Every module of the port, chip_smoke.py and the port's study script,
+    imported in a fresh interpreter: neither jax nor ionflux is loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ionflux_torch\n"
@@ -50,7 +52,12 @@ def test_port_imports_neither_jax_nor_ionflux():
         "    ionflux_torch.__path__, 'ionflux_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "for n in ('models.markov', 'protorec', 'solver.chained',\n"
+        "          'ops.hh_solve', 'ops._build', 'fit.cmaes'):\n"
+        "    assert 'ionflux_torch.' + n in names, n\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import train_d0_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ionflux'))\n"
         "assert not bad, bad\n"
@@ -58,7 +65,7 @@ def test_port_imports_neither_jax_nor_ionflux():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 12
+    assert int(out.stdout.split()[-1]) >= 20
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -69,10 +76,20 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from ionflux_torch.entry import entry
     from ionflux_torch.utils.ckpt import load_pytree
 
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    try:
+        import train_d0_torch as T0
+    finally:
+        sys.path.pop(0)
     d1 = os.path.join(ROOT, "out", "d1", "model.npz")
     for call in (entry,
                  lambda: TP.activation_protocol(20.0),
                  lambda: TP.deactivation_family(1.0),
+                 lambda: TP.from_time_series(np.arange(3.0), np.zeros(3)),
+                 lambda: TRec.protocol("pr3-cell5"),
+                 T0.generate_data,
+                 lambda: T0._sweep_protos("pr5-cell5"),
+                 lambda: T0.make_objective_fused(np.zeros(1), np.zeros(1), 8),
                  lambda: load_pytree(d1, "nnf"),
                  lambda: TN.nnf_init(torch.Generator().manual_seed(0),
                                      TR.HH_B06, 1, 16)):
@@ -80,6 +97,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
             call()
     fn, args = entry(device="cpu")
     assert args[2].device.type == "cpu"
+    assert TRec.protocol("pr4-cell5", device="cpu").v.device.type == "cpu"
     # CPU tensors take the plain version: no kernel launch is counted
     before = (TK.fused_nnf_solve_ft.launches,
               TK.fused_nnf_popsweep_solve_ft.launches)
@@ -218,3 +236,73 @@ def test_popsweep_kernel_matches_plain_on_card(card):
     with pytest.raises(NotImplementedError, match="mxu_bf16"):
         TK.fused_nnf_popsweep_solve_ft(nets, TR.HH_B06, v, ts,
                                        mxu_bf16=True, **kw)
+
+
+def _hh_population(b=16, device="cpu"):
+    base = np.array([float(x) for x in TR.HH_B06])
+    rs = np.random.RandomState(0)
+    return torch.from_numpy((base[None] * np.exp(0.1 * rs.randn(b, 8))
+                             ).astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+def test_hh_pop_kernel_matches_plain_on_card(card):
+    """A y0 carry with a dead lane, and the stiff lane that the pace cull
+    reaps alone; b = 40 lanes leaves the second warp partly idle."""
+    pop = _hh_population(40, card)
+    v = TP.activation_protocol(20.0, 1.0, device=card).v
+    ts = torch.arange(50.0, 8000.0, 100.0, device=card)
+    y0 = torch.zeros(40, 2, device=card)
+    y0[:, 1] = 1.0
+    y0[3] = float("nan")
+    kw = dict(proto_dt=1.0, trips=2048, t_end=8000.0, y0=y0)
+    before = TH.fused_hh_pop_solve_ft.launches
+    ys_k = TH.fused_hh_pop_solve_ft(pop, v, ts, **kw)
+    torch.cuda.synchronize()
+    assert TH.fused_hh_pop_solve_ft.launches == before + 1
+    ys_p = TH.fused_hh_pop_solve_ft_plain(pop, v, ts, **kw)
+    assert TH.fused_hh_pop_solve_ft.launches == before + 1
+    assert bool(torch.isinf(ys_k[3]).all())
+    assert bool(torch.isfinite(ys_k[[0, 1, 2, 4, 39]]).all())
+    _close_on_card(ys_k, ys_p)
+    pop[1, 1] = 1.0
+    ys_k = TH.fused_hh_pop_solve_ft(pop, v, ts, **kw)
+    ys_p = TH.fused_hh_pop_solve_ft_plain(pop, v, ts, **kw)
+    dead = torch.isinf(ys_k).all(dim=(1, 2)).nonzero().flatten().tolist()
+    assert dead == [1, 3]
+    _close_on_card(ys_k, ys_p)
+
+
+@pytest.mark.cuda
+def test_hh_rk4_kernel_matches_plain_on_card(card):
+    pop = _hh_population(40, card)
+    v = TP.activation_protocol(20.0, 1.0, device=card).v
+    kw = dict(proto_dt=1.0, dt_out=10.0, n_out=801, n_sub=10, y0=(0.1, 0.9))
+    before = TH.fused_hh_rk4.launches
+    ys_k = TH.fused_hh_rk4(pop, v, **kw)
+    torch.cuda.synchronize()
+    assert TH.fused_hh_rk4.launches == before + 1
+    ys_p = TH.fused_hh_rk4_plain(pop, v, **kw)
+    assert TH.fused_hh_rk4.launches == before + 1
+    assert tuple(ys_k.shape) == (40, 801, 2)
+    assert bool(torch.isfinite(ys_p).all())
+    # no controller and the same f32 operations in the same order
+    assert float((ys_k - ys_p).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_nnf_pop_kernel_matches_plain_on_card(card):
+    """The trip kernel at Q = 1: one protocol row in a tile of 8."""
+    nets = _net(members=5, sizes=(2, 64, 64, 1), device=card)
+    v = TP.activation_protocol(20.0, 1.0, device=card).v
+    ts = torch.arange(50.0, 8000.0, 100.0, device=card)
+    kw = dict(proto_dt=1.0, trips=2048)
+    before = TK.fused_nnf_pop_solve_ft.launches
+    ys_k = TK.fused_nnf_pop_solve_ft(nets, TR.HH_B06, v, ts, **kw)
+    torch.cuda.synchronize()
+    assert TK.fused_nnf_pop_solve_ft.launches == before + 1
+    ys_p = TK.fused_nnf_pop_solve_ft_plain(nets, TR.HH_B06, v, ts, **kw)
+    assert TK.fused_nnf_pop_solve_ft.launches == before + 1
+    assert tuple(ys_k.shape) == (5, 80, 2)
+    assert bool(torch.isfinite(ys_k).all())
+    _close_on_card(ys_k, ys_p)
