@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``ionflux_torch/csrc`` (both sources, one nvcc
-each, started together; sm_90a), drives two paths of the port at full width
-and holds every kernel (five) against its plain PyTorch version on the same
-inputs.
+Builds the CUDA kernels from ``ionflux_torch/csrc`` (three sources, one nvcc
+each, started together; sm_90a), drives three paths of the port at full
+width and holds every kernel (seven, the popsweep in both of its modes)
+against its plain PyTorch version on the same inputs.
 
 The forward-simulation path: the trained 200-wide, 7-layer NN-f
 (``out/d1``) and NN-d (``out/d2``) models.
@@ -40,6 +40,27 @@ before it and read just after:
   HH-population kernel at 128 lanes on a Pr3 and a Pr5 sweep with a y0 carry
   and with a stiff lane that must die alone, the RK4 kernel, the population
   solve; times and bounds.
+
+The while-loop sweep, the popsweep's mxu_bf16 mode and the Mosaic probe,
+each through its entry point, counters set to 0 just before and read just
+after:
+  (l) ``fused_nnf_solve`` of d1 on the activation family (B = 7, 80,001
+      knots, rtol 1e-6, max_rec 16384);
+  (l') ``fused_nnf_solve`` of a 5 x 200 ``nnf_init`` net on two activation
+      protocols at 1 ms knots (tests/test_pallas_tpu.py's case);
+  (m) ``simulate_population(mxu_bf16=True)`` at (c)'s shape (64 members of
+      the 5 x 200 ``nnf_init`` net, bench.py's bf16 popsweep nets, on the
+      deactivation family, 9 rows padded to 16, so the biases are rounded
+      to bf16 too);
+  (n) ``scripts/probe_mosaic_bias_fault_torch.py`` in both cases;
+  then (l) kernel vs plain (5e-3 on the gates), its records against the
+  sweep kernel's accepted trips of (b) (printed, expected identical), its
+  gates against (b)'s within 5e-3 and its currents against (b)'s odeint
+  within 5e-3; (l') against odeint within 2e-2; (m) kernel vs plain
+  (5e-3), bf16 vs the f32 kernel on the same nets (above 0; below 2% of the
+  currents' range at tests/test_pallas.py's 1 x 16 shape) and the bf16
+  kernel on (c)'s d1 members (logged); (n) kernel vs plain and bias vs fold
+  within 1e-5; times and bounds.
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
@@ -76,11 +97,19 @@ TRIPS = 4096          # the MLP trip solves
 HH_TRIPS = 2048       # the HH-population solve, as the d0 objective runs it
 RK4_WINDOW = 10000    # knots of Pr3 sweep 0 on which the plain RK4 runs
 P_POP, P_NND = 64, 4
+WHILE = dict(rtol=1e-6, atol=1e-8, max_rec=16384, max_steps=100_000)
+WHILE_ODE_TOL = 2e-2  # (l'): the while sweep vs odeint (tests/test_pallas_tpu.py)
+BF16_DEV = 0.02       # (m): bf16 vs f32 currents, of their range, at the
+                      # shape of tests/test_pallas.py::
+                      # test_popsweep_mxu_bf16_storage (3 nets of 1 x 16)
+PROBE_TOL = 1e-5      # (n): probe kernel vs plain, and bias vs fold
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): float32 on
-# the CUDA cores and HBM3 bandwidth.  The kernels run float32 FMA, no tensor
-# cores.
+# the CUDA cores, bf16 on the tensor cores, and HBM3 bandwidth.  The kernels
+# run float32 FMA, no tensor cores; the popsweep's mxu_bf16 mode multiplies
+# bf16 operands, so its bound takes the bf16 rate.
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -153,19 +182,20 @@ def mlp_work(leaves) -> tuple[int, int]:
 
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
+    from ionflux_torch.ops import bias_probe as B
     from ionflux_torch.ops import fused_solve as F
     from ionflux_torch.ops import hh_solve as H
 
     for k in (F.fused_nnf_solve_ft, F.fused_nnf_popsweep_solve_ft,
-              F.fused_nnf_pop_solve_ft, H.fused_hh_pop_solve_ft,
-              H.fused_hh_rk4):
+              F.fused_nnf_pop_solve_ft, F.fused_nnf_solve,
+              H.fused_hh_pop_solve_ft, H.fused_hh_rk4, B.bias_probe):
         k.launches = 0
 
 
-def roofline(ops: float, nbytes: float):
-    """Least time (ms) for `ops` float32 operations and `nbytes` bytes, and
-    which of the two bounds it."""
-    t_ops, t_bytes = ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+def roofline(ops: float, nbytes: float, flops: float = F32_FLOPS):
+    """Least time (ms) for `ops` operations at `flops` per second and
+    `nbytes` bytes, and which of the two bounds it."""
+    t_ops, t_bytes = ops / flops, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -175,12 +205,14 @@ def roofline(ops: float, nbytes: float):
 HH_RHS_OPS = 4 + 12
 
 
-def trip_bound(n_valid: int, lanes: int, rhs_ops: int, in_bytes: int):
+def trip_bound(n_valid: int, lanes: int, rhs_ops: int, in_bytes: int,
+               flops: float = F32_FLOPS):
     """Bound of a trip solve: 6 right-hand sides of rhs_ops operations (an
     MLP: 2 per MAC) per lane per executed trip; the inputs read once and the
     executed trips' records (t, h, start y, 7 stages) written once."""
     return roofline(n_valid * 6 * rhs_ops * lanes,
-                    in_bytes + n_valid * (2 + 2 * lanes + 7 * 2 * lanes) * 4)
+                    in_bytes + n_valid * (2 + 2 * lanes + 7 * 2 * lanes) * 4,
+                    flops)
 
 
 def check_counts(what: str, launches: dict) -> None:
@@ -218,8 +250,10 @@ def evaluation_profile(objective, xs, secs_per_generation: float) -> None:
         f"(untraced) the device is idle {100 * (1 - busy / 1e3 / wall):.1f}%")
 
 
-def forward_path(dev, rows) -> None:
-    """Phases (a)-(d): the forward-simulation path and its two kernels."""
+def forward_path(dev, rows) -> dict:
+    """Phases (a)-(d): the forward-simulation path and its two kernels.
+    Returns what the later phases compare with: the f32 popsweep currents,
+    the sweep's odeint currents and the sweep kernel's records and gates."""
     from ionflux_torch import eval as E
     from ionflux_torch import protocols as P
     from ionflux_torch.entry import entry
@@ -298,6 +332,7 @@ def forward_path(dev, rows) -> None:
     log(f"(b) sweep B=7: n_acc/n_valid kernel {n_k}, plain {n_p}; kernel "
         f"{ms_k:.3f} ms, plain {ms_p:.1f} ms")
     err = gate_diff("(b) sweep", ys_k, ys_p)
+    b2 = dict(out=out_k, ys=ys_k)
     i_ode = E.simulate_family("nnf", d1, act, ts_act, SYNTHETIC,
                               backend="xla")
     d_ode = float((i_sweep - i_ode).abs().max())
@@ -346,6 +381,7 @@ def forward_path(dev, rows) -> None:
         launches=launches["fused_nnf_popsweep_solve_ft"], max_abs_err=err,
         ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
         library_ms=None))
+    return dict(i_pop=i_pop, i_ode=i_ode, b2=b2)
 
 
 def d0_path(dev, rows) -> None:
@@ -618,6 +654,235 @@ def d0_path(dev, rows) -> None:
         library_ms=None))
 
 
+def accepted_trips(rec_sc: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Indices of a trip solve's accepted trips: those after which the next
+    trip starts later."""
+    t = rec_sc[:n_valid, 0]
+    return torch.nonzero(t[1:] != t[:-1]).flatten()
+
+
+def while_probe_path(dev, rows, fwd: dict) -> None:
+    """Phases (l)-(n): the while-loop sweep, the popsweep's mxu_bf16 mode
+    and the Mosaic probe, each through its entry point, and their kernels
+    against their plain versions."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import probe_mosaic_bias_fault_torch as PR
+    from ionflux_torch import eval as E
+    from ionflux_torch import protocols as P
+    from ionflux_torch.models import nn as N
+    from ionflux_torch.models.registry import HH_B06, SYNTHETIC
+    from ionflux_torch.observe import gate_current
+    from ionflux_torch.ops import bias_probe as B
+    from ionflux_torch.ops import fused_solve as F
+    from ionflux_torch.utils.ckpt import (load_pytree, params_from_leaves,
+                                         params_to_leaves)
+
+    d1_path = os.path.join(ROOT, "out", "d1", "model.npz")
+    d1 = load_pytree(d1_path, "nnf", device=dev)
+    d1_leaves = npz_leaves(d1_path)
+    macs, n_params = mlp_work(d1_leaves)
+    pop64 = params_from_leaves(population(d1_leaves, P_POP, 0), "nnf", dev)
+    act = P.activation_family(0.1, device=dev)
+    deact = P.deactivation_family(0.1, device=dev)
+    ts_act, ts_deact = act[0].times(), deact[0].times()
+    b_act, b_de = P.stack(act), P.stack(deact)
+    wide = N.nnf_init(torch.Generator().manual_seed(0), HH_B06, 5, 200,
+                      device=dev)
+    # (m)'s members: the 5 x 200 nnf_init net x (1 + 0.01 N(0, 1)), the
+    # nets bench.py's popsweep runs in mxu_bf16.  Not d1: its bf16 solve at
+    # rtol 1e-5 does not reach t_end within the trips (logged below).
+    popw = params_from_leaves(population(params_to_leaves(wide), P_POP, 0),
+                              "nnf", dev)
+    act2 = [P.activation_protocol(v, 1.0, device=dev) for v in (-40.0, 20.0)]
+    b_act2 = P.stack(act2)
+    ts161 = torch.linspace(0.0, 8000.0, 161, device=dev)
+
+    # ---- (l), (l'), (m), (n): the path, counted ----------------------------
+    kernels = {"fused_nnf_solve": F.fused_nnf_solve,
+               "fused_nnf_popsweep_solve_ft": F.fused_nnf_popsweep_solve_ft,
+               "bias_probe": B.bias_probe}
+    calls = {
+        "(l) while sweep d1": lambda: F.fused_nnf_solve(
+            d1.net, d1.rgate, b_act.v, ts_act, proto_dt=0.1, **WHILE),
+        "(l') while sweep 5x200": lambda: F.fused_nnf_solve(
+            wide.net, wide.rgate, b_act2.v, ts161, proto_dt=1.0,
+            max_rec=4096),
+        "(m) popsweep mxu_bf16": lambda: E.simulate_population(
+            "nnf", popw, deact, ts_deact, SYNTHETIC, trips=TRIPS,
+            mxu_bf16=True),
+        "(n) probe bias": lambda: PR.main("bias", device=dev),
+        "(n) probe fold": lambda: PR.main("fold", device=dev)}
+    reset_counts()
+    out, secs = {}, {}
+    for name, call in calls.items():
+        t = time.perf_counter()
+        out[name] = call()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+    launches = {n: k.launches for n, k in kernels.items()}
+    log(f"while/bf16/probe path: host clock s per call (first call, "
+        f"synchronised) {secs}")
+    check_counts("while/bf16/probe path", launches)
+    ys_l, ys_l2, i_bf, pr_bias, pr_fold = out.values()
+    for name, x, shape in (("(l)", ys_l, (7, 80001, 2)),
+                           ("(l')", ys_l2, (2, 161, 2)),
+                           ("(m)", i_bf, (P_POP, 9, 100001)),
+                           ("(n) bias", pr_bias, (64, 128)),
+                           ("(n) fold", pr_fold, (64, 128))):
+        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{name}: shape {tuple(x.shape)} (expected "
+                               f"{shape}) or non-finite values")
+
+    # ---- (l) while-loop kernel vs plain, vs the sweep kernel, vs odeint ----
+    s = F._sweep_setup(d1.net, d1.rgate, b_act.v, ts_act, 0.0, 0.1,
+                       float(ts_act[-1]), WHILE["rtol"], WHILE["atol"],
+                       WHILE["max_rec"], None, block=1)
+    steps = WHILE["max_steps"]
+    ms_k, out_k = cuda_ms(lambda: F._while_solve_cuda(s, steps), reps=3)
+    ms_p, out_p = cuda_ms(lambda: F._while_solve_plain(s, steps), reps=1)
+    n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
+    ys_k, ys_p = [F._dense_eval_popsweep_ft(*o[:3], o[3][0], o[3][0].abs(),
+                                            ts_act)[0] for o in (out_k, out_p)]
+    log(f"(l) while sweep B=7: n_acc/steps kernel {n_k}, plain {n_p}; kernel "
+        f"{ms_k:.3f} ms, plain {ms_p:.1f} ms; the path's launch equals this "
+        f"one: {bool(torch.equal(ys_l, ys_k))}")
+    err = gate_diff("(l) while sweep", ys_k, ys_p)
+    # its records against the sweep kernel's accepted trips of (b)
+    b2_sc, b2_y, b2_k, b2_n, _ = fwd["b2"]["out"]
+    acc = accepted_trips(b2_sc, int(b2_n[1]))
+    n = min(n_k[0], acc.shape[0])
+    diffs = torch.stack([
+        (b2_sc[acc[:n]] - out_k[0][:n]).abs().amax(dim=1),
+        (b2_y[acc[:n]] - out_k[1][:n]).abs().flatten(1).amax(dim=1),
+        (b2_k[acc[:n]] - out_k[2][:n]).abs().flatten(1).amax(dim=1)])
+    parted = torch.nonzero(diffs.amax(dim=0) != 0).flatten()
+    log(f"(l) records vs the sweep kernel's accepted trips (n_acc {n_k[0]} "
+        f"vs {acc.shape[0]} accepted of {int(b2_n[1])} trips): max |d| over "
+        f"the first {n} = {float(diffs.max()):.3e}; first step at which they "
+        f"part: {int(parted[0]) if parted.numel() else 'none'}")
+    d_b2 = float((ys_k - fwd["b2"]["ys"]).abs().max())
+    log(f"(l) gates vs the sweep kernel's: max |dy| = {d_b2:.3e} (tol "
+        f"{GATE_TOL})")
+    if not d_b2 <= GATE_TOL:
+        raise RuntimeError(f"while vs sweep kernel {d_b2} > {GATE_TOL}")
+    i_l = gate_current(ys_l, E._family_voltage(b_act, ts_act), SYNTHETIC)
+    d_ode = float((i_l - fwd["i_ode"]).abs().max())
+    log(f"(l) currents vs odeint: max |dI| = {d_ode:.3e} (tol "
+        f"{CURRENT_TOL})")
+    if not d_ode <= CURRENT_TOL:
+        raise RuntimeError(f"while sweep vs odeint {d_ode} > {CURRENT_TOL}")
+    in_bytes = (b_act.v.numel() + n_params + 4) * 4
+    b_ms, b_by = trip_bound(n_k[1], len(act), 2 * macs, in_bytes)
+
+    # ---- (l') the full-width test case against odeint ----------------------
+    ref = torch.stack([E.solve_states("nnf", wide, p, ts161, rtol=1e-5,
+                                      atol=1e-7) for p in act2])
+    d_wide = float((ys_l2 - ref).abs().max())
+    log(f"(l') 5x200 nnf_init on 2 protocols at 1 ms: max |dy| vs odeint = "
+        f"{d_wide:.3e} (tol {WHILE_ODE_TOL})")
+    if not d_wide < WHILE_ODE_TOL:
+        raise RuntimeError(f"(l') while sweep vs odeint {d_wide}")
+    rows.append(dict(
+        name="fused_nnf_solve", route="cuda",
+        source="ionflux_torch/csrc/fused_solve.cu",
+        replaces="ionflux/ops/pallas_solve.py:182",
+        launches=launches["fused_nnf_solve"], max_abs_err=err, ms=ms_k,
+        plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # ---- (m) the popsweep in mxu_bf16 vs plain, vs f32 --------------------
+    def pop_setup(pop, bf16):
+        return F._popsweep_setup(pop.net, pop.rgate, b_de.v, ts_deact, 0.0,
+                                 0.1, float(ts_deact[-1]), 1e-5, 1e-7, TRIPS,
+                                 None, None, True, bf16, 1)
+
+    s, s32 = pop_setup(popw, True), pop_setup(popw, False)
+    q_pad = s.y0.shape[1]
+    if q_pad != 16 or not all(torch.equal(b, b.bfloat16().float())
+                              for _, b in s.layers):
+        raise RuntimeError(f"(m): Q pads to {q_pad}; biases must be rounded")
+    ms_k, out_k = cuda_ms(lambda: F._trip_solve_cuda(s), reps=3)
+    ms_32, out_32 = cuda_ms(lambda: F._trip_solve_cuda(s32), reps=3)
+    ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1)
+    n_k, n_p, n_32 = (o[3].tolist() for o in (out_k, out_p, out_32))
+    log(f"(m) popsweep mxu_bf16 P={P_POP} Q=9->16: n_acc/n_valid kernel "
+        f"{n_k}, plain {n_p}; kernel {ms_k:.3f} ms ({ms_k / n_k[1]:.4f} ms "
+        f"per trip), plain {ms_p:.1f} ms; the f32 kernel on the same nets: "
+        f"n_acc/n_valid {n_32}, {ms_32:.3f} ms ({ms_32 / n_32[1]:.4f} ms per "
+        f"trip)")
+    recs = [F.PopsweepRecords(*o[:3], o[3][0], o[3][1], P_POP, q_pad, 9,
+                              o[4]) for o in (out_k, out_p, out_32)]
+    ys_bf = recs[0].evaluate(ts_deact)
+    err = gate_diff("(m) popsweep mxu_bf16", ys_bf, recs[1].evaluate(ts_deact))
+    v_de = E._family_voltage(b_de, ts_deact)[None]
+    i_k = gate_current(ys_bf, v_de, SYNTHETIC)
+    i_32 = gate_current(recs[2].evaluate(ts_deact), v_de, SYNTHETIC)
+    dev_bf = float((i_k - i_32).abs().max())
+    log(f"(m) bf16 vs f32 currents at full width: max |dI| = {dev_bf:.4e}, "
+        f"{dev_bf / float(i_32.abs().max()):.3e} of their range (must be > "
+        f"0); the path's launch equals this one: {bool(torch.equal(i_bf, i_k))}")
+    if not dev_bf > 0.0:
+        raise RuntimeError("(m) bf16 and f32 currents are identical")
+    # the bound of tests/test_pallas.py::test_popsweep_mxu_bf16_storage at
+    # its own shape: 3 nets of 1 x 16, two protocols at 1 ms, 161 times
+    nets = [params_to_leaves(N.nnf_init(torch.Generator().manual_seed(k),
+                                        HH_B06, 1, 16, device=dev))
+            for k in range(3)]
+    small = params_from_leaves([np.stack(x) for x in zip(*nets)], "nnf", dev)
+    act40 = [P.activation_protocol(v, 1.0, device=dev) for v in (-40.0, 40.0)]
+    i_small = [E.simulate_population("nnf", small, act40, ts161, SYNTHETIC,
+                                     trips=2048, mxu_bf16=bf)
+               for bf in (False, True)]
+    dev_s = float((i_small[1] - i_small[0]).abs().max())
+    rng_s = float(i_small[0].abs().max())
+    log(f"(m) bf16 vs f32 currents at the reference test's shape: max |dI| "
+        f"= {dev_s:.4e}, {dev_s / rng_s:.3e} of their range (must be in (0, "
+        f"{BF16_DEV}))")
+    if not 0.0 < dev_s < BF16_DEV * rng_s:
+        raise RuntimeError(f"(m) small bf16 vs f32 {dev_s} of range {rng_s}")
+    n_d1 = F._trip_solve_cuda(pop_setup(pop64, True))[3].tolist()
+    log(f"(m) the bf16 kernel on the 64 d1 members of (c): n_acc/n_valid "
+        f"{n_d1} of {TRIPS} trips (negative n_acc: t_end not reached)")
+    in_bytes = (b_de.v.numel() + 8) * 4 + P_POP * (2 * macs
+                                                   + 4 * (n_params - macs))
+    b_ms, b_by = trip_bound(n_k[1], P_POP * 9, 2 * macs, in_bytes,
+                            BF16_FLOPS)
+    rows.append(dict(
+        name="fused_nnf_popsweep_solve_ft[mxu_bf16]", route="cuda",
+        source="ionflux_torch/csrc/fused_solve.cu",
+        replaces="ionflux/ops/pallas_solve.py:1459",
+        launches=launches["fused_nnf_popsweep_solve_ft"], max_abs_err=err,
+        ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
+
+    # ---- (n) the probe kernel vs plain, bias vs fold -----------------------
+    w, b = PR.probe_inputs(dev)
+    err = 0.0
+    ms = {}
+    for fold, got in ((False, pr_bias), (True, pr_fold)):
+        ms[fold], _ = cuda_ms(lambda: B.bias_probe(w, b, fold=fold),
+                              reps=200)
+        ms_p, ref = cuda_ms(lambda: B.bias_probe_plain(w, b, fold=fold),
+                            reps=1)
+        err = max(err, float((got - ref).abs().max()))
+    d_case = float((pr_bias - pr_fold).abs().max())
+    log(f"(n) probe: kernel {ms[False] * 1e3:.2f} us (bias), "
+        f"{ms[True] * 1e3:.2f} us (fold), plain {ms_p:.2f} ms; kernel vs "
+        f"plain {err:.3e}, bias vs fold {d_case:.3e} (tol {PROBE_TOL})")
+    if not (err <= PROBE_TOL and d_case <= PROBE_TOL):
+        raise RuntimeError(f"(n) probe: {err}, {d_case} > {PROBE_TOL}")
+    p, _, m = w.shape
+    q, trips = B.ROWS, B.TRIPS
+    b_ms, b_by = roofline(trips * p * q * 2 * m * 3,
+                          (w.numel() + b.numel() + p * B.OUT_COLS) * 4)
+    rows.append(dict(
+        name="bias_probe", route="cuda",
+        source="ionflux_torch/csrc/bias_probe.cu",
+        replaces="scripts/probe_mosaic_bias_fault.py:41",
+        launches=launches["bias_probe"], max_abs_err=err, ms=ms[False],
+        plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms_fold=ms[True]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -647,8 +912,11 @@ def main() -> int:
         _build.load_library(name)
 
     rows = []
-    forward_path(dev, rows)
+    fwd = forward_path(dev, rows)
     log(f"forward path done at {time.perf_counter() - t_start:.0f} s")
+    while_probe_path(dev, rows, fwd)
+    log(f"while/bf16/probe path done at {time.perf_counter() - t_start:.0f} "
+        f"s")
     d0_path(dev, rows)
     log(f"d0 path done at {time.perf_counter() - t_start:.0f} s")
 

@@ -20,12 +20,16 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # library name -> source; fused_solve: the MLP trip kernel (sweep, popsweep,
-# population); hh_solve: the HH population trip kernel and the HH RK4 kernel
+# population) and the MLP while-loop sweep; hh_solve: the HH population trip
+# kernel and the HH RK4 kernel; bias_probe: the Mosaic bias-broadcast probe
 SOURCES = {
     "fused_solve": os.path.join(_PKG, "csrc", "fused_solve.cu"),
     "hh_solve": os.path.join(_PKG, "csrc", "hh_solve.cu"),
+    "bias_probe": os.path.join(_PKG, "csrc", "bias_probe.cu"),
 }
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -90,12 +94,22 @@ _SIGNATURES = {
     "fused_solve": {
         "ionflux_trip_solve": [
             _PTR, _PTR, _PTR, _I64,             # vpad, y0, w, w_stride
+            _PTR, _I64, _I32,                   # b, b_stride, bf16
             _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # rec_sc, rec_y, rec_k, n_out,
                                                 # alive_out, partial
             ctypes.POINTER(ctypes.c_int), _I32,  # sizes, n_layers
             _I32, _I32, _I32, _I32, _I32, _I32,  # p, q, n_pad, rt, trips,
                                                 # block
             _I32, _I32,                         # cull, has_base
+            _FLOATS, _PTR,                      # scalars, stream
+        ],
+        "ionflux_while_solve": [
+            _PTR, _PTR, _PTR,                   # vpad, w, b
+            _PTR, _PTR, _PTR, _PTR, _PTR,       # rec_sc, rec_y, rec_k, n_out,
+                                                # partial
+            ctypes.POINTER(ctypes.c_int), _I32,  # sizes, n_layers
+            _I32, _I32, _I32, _I32, _I32,       # q, n_pad, rt, max_rec,
+                                                # max_steps
             _FLOATS, _PTR,                      # scalars, stream
         ],
     },
@@ -111,6 +125,13 @@ _SIGNATURES = {
             _PTR, _PTR, _PTR,                   # v, params, out
             _I32, _I32, _I32, _I32,             # b, n_knots, n_out, n_sub
             _FLOATS, _PTR,                      # scalars, stream
+        ],
+    },
+    "bias_probe": {
+        "ionflux_bias_probe": [
+            _PTR, _PTR, _PTR,                   # w, b, out
+            _I32, _I32, _I32, _I32, _I32,       # p, q, m, trips, fold
+            _PTR,                               # stream
         ],
     },
 }
@@ -129,3 +150,16 @@ def load_library(name: str) -> ctypes.CDLL:
     lib.ionflux_error_string.argtypes = [ctypes.c_int]
     lib.ionflux_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(name: str, fn: str, dev, *args) -> None:
+    """Call the C entry point ``fn`` of library ``name`` with ``args`` and
+    the device's current stream; raise if the launch was refused."""
+    lib = load_library(name)
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn)(*args,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{fn}: kernel launch failed: "
+            f"{lib.ionflux_error_string(err).decode()} (cudaError {err})")

@@ -1,5 +1,5 @@
-"""Fused fixed-trip DP5(4) solves of NN-f/NN-d gate models, for many lanes
-on one shared step controller (counterpart of three kernels of
+"""Fused DP5(4) solves of NN-f/NN-d gate models, for many lanes on one
+shared step controller (counterpart of four kernels of
 ``ionflux/ops/pallas_solve.py``).
 
 - ``fused_nnf_solve_ft`` (replaces ``pallas_solve.py::fused_nnf_solve_ft``):
@@ -10,10 +10,13 @@ on one shared step controller (counterpart of three kernels of
 - ``fused_nnf_pop_solve_ft`` (replaces
   ``pallas_solve.py::fused_nnf_pop_solve_ft``): P member MLPs on ONE shared
   protocol, from rest, no cull.
+- ``fused_nnf_solve`` (replaces ``pallas_solve.py::fused_nnf_solve``): the
+  first-generation adaptive solve, one shared MLP over B <= 128 protocols
+  as a data-dependent while loop (see its section below).
 
-All run one trip algorithm; the sweep is the popsweep case with P = 1 and
-no cull, the population solve its case with Q = 1 and no cull.  The trip
-loop itself (``_trip_loop_plain``) takes any right-hand side, and also
+The first three run one trip algorithm; the sweep is the popsweep case with
+P = 1 and no cull, the population solve its case with Q = 1 and no cull.  The
+trip loop itself (``_trip_loop_plain``) takes any right-hand side, and also
 serves the HH population solve of ``ops/hh_solve.py``.  A trip attempts one
 step for every lane at the launch's shared step size and accepts it when the
 worst LIVE lane's error ratio is <= 1.
@@ -126,11 +129,12 @@ class _Setup:
     t_end: float
     rtol: float
     atol: float
-    trips: int
+    trips: int            # rows of the record stream (B6: max_rec)
     block: int
     cull: bool
     q_split: int = 1
-    bf16: bool = False
+    bf16: bool = False    # MLP inputs rounded to bf16 per layer; the
+                          # setup has rounded the weights already
 
 
 def _gate_tuples(rgate: HHParams, base_hh: HHParams | None):
@@ -147,9 +151,13 @@ def _gate_tuples(rgate: HHParams, base_hh: HHParams | None):
 # ---------------------------------------------------------------------------
 
 
-def _trip_solve_plain(s: _Setup):
-    """The fixed-trip algorithm in PyTorch ops, in float32, for the MLP
-    gate models.  Returns what ``_trip_loop_plain`` returns."""
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _mlp_rhs(s: _Setup):
+    """The right-hand side ``rhs_all(t, y)`` of the MLP gate models over
+    lanes y [P, Q, 2] (t a 0-dim f32 tensor), in float32 PyTorch ops."""
     f32 = torch.float32
     dev = s.vpad.device
     if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
@@ -159,10 +167,7 @@ def _trip_solve_plain(s: _Setup):
     n_pad = s.vpad.shape[1]
     p5, p6, p7, p8 = s.gate
     inv_dt = 1.0 / s.dt_knot
-    if s.bf16:
-        ws = [w.to(torch.bfloat16).to(f32) for w, _ in s.layers]
-    else:
-        ws = [w for w, _ in s.layers]
+    ws = [w for w, _ in s.layers]
     bs = [b[:, None, :] for _, b in s.layers]
     n_layers = len(ws)
 
@@ -178,7 +183,7 @@ def _trip_solve_plain(s: _Setup):
     def mlp(x):                                        # [P, nq, 2] -> [P, nq]
         h = x
         for li in range(n_layers):
-            lhs = h.to(torch.bfloat16).to(f32) if s.bf16 else h
+            lhs = _bf16_round(h) if s.bf16 else h
             h = torch.matmul(lhs, ws[li]) + bs[li]
             if li < n_layers - 1:
                 h = torch.where(h >= 0, h, 0.01 * h)
@@ -198,10 +203,41 @@ def _trip_solve_plain(s: _Setup):
         drdt = -k3[None] * r + k4[None] * (1.0 - r)
         return torch.stack([dadt, drdt], dim=-1)
 
+    return lambda t, y: rhs(voltage(t), y)
+
+
+def _trip_solve_plain(s: _Setup):
+    """The fixed-trip algorithm in PyTorch ops, in float32, for the MLP
+    gate models.  Returns what ``_trip_loop_plain`` returns."""
     return _trip_loop_plain(
-        lambda t, y: rhs(voltage(t), y), s.y0, t0=s.t0, t_end=s.t_end,
-        dt_knot=s.dt_knot, rtol=s.rtol, atol=s.atol, trips=s.trips,
-        block=s.block, cull="step" if s.cull else None)
+        _mlp_rhs(s), s.y0, t0=s.t0, t_end=s.t_end, dt_knot=s.dt_knot,
+        rtol=s.rtol, atol=s.atol, trips=s.trips, block=s.block,
+        cull="step" if s.cull else None)
+
+
+_TAB = ([[float(x) for x in row] for row in _A], [float(x) for x in _C],
+        [float(x) for x in _B_SOL], [float(x) for x in _B_ERR])
+
+
+def _dp5_attempt(rhs_all, t, y, f, h_eff):
+    """One DP5(4) attempt from (t, y) with first stage f: (the 7 stages,
+    y1, the error estimate), in the kernels' f32 order."""
+    A, C, BS, BE = _TAB
+    ks = [f]
+    for si in range(1, 7):
+        yi = y
+        for sj in range(si):
+            if A[si][sj] != 0.0:
+                yi = yi + (h_eff * A[si][sj]) * ks[sj]
+        ks.append(rhs_all(t + C[si] * h_eff, yi))
+    y1 = y
+    err = torch.zeros_like(y)
+    for sj in range(7):
+        if BS[sj] != 0.0:
+            y1 = y1 + (h_eff * BS[sj]) * ks[sj]
+        if BE[sj] != 0.0:
+            err = err + (h_eff * BE[sj]) * ks[sj]
+    return ks, y1, err
 
 
 def _trip_loop_plain(rhs_all, y0, *, t0: float, t_end: float, dt_knot: float,
@@ -223,10 +259,6 @@ def _trip_loop_plain(rhs_all, y0, *, t0: float, t_end: float, dt_knot: float,
     f32 = torch.float32
     dev = y0.device
     p, q = y0.shape[:2]
-    A = [[float(x) for x in row] for row in _A]
-    C = [float(x) for x in _C]
-    BS = [float(x) for x in _B_SOL]
-    BE = [float(x) for x in _B_ERR]
 
     t = torch.tensor(t0, dtype=f32, device=dev)
     f0 = rhs_all(t, y0)
@@ -254,20 +286,7 @@ def _trip_loop_plain(rhs_all, y0, *, t0: float, t_end: float, dt_knot: float,
         for j in range(block):
             i = blk * block + j
             h_eff = torch.clamp(torch.minimum(h, t_end - t), min=1e-8)
-            ks = [f]
-            for si in range(1, 7):
-                yi = y
-                for sj in range(si):
-                    if A[si][sj] != 0.0:
-                        yi = yi + (h_eff * A[si][sj]) * ks[sj]
-                ks.append(rhs_all(t + C[si] * h_eff, yi))
-            y1 = y
-            err = torch.zeros_like(y)
-            for sj in range(7):
-                if BS[sj] != 0.0:
-                    y1 = y1 + (h_eff * BS[sj]) * ks[sj]
-                if BE[sj] != 0.0:
-                    err = err + (h_eff * BE[sj]) * ks[sj]
+            ks, y1, err = _dp5_attempt(rhs_all, t, y, f, h_eff)
             scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y1))
             r = torch.sqrt(torch.mean(torch.square(err / scale), dim=-1))
             # NaN-poison r with scale*0 so a non-finite y1 reads as bad too
@@ -322,29 +341,42 @@ def _trip_loop_plain(rhs_all, y0, *, t0: float, t_end: float, dt_knot: float,
 # ---------------------------------------------------------------------------
 
 
+def _kernel_inputs(s: _Setup):
+    """What both CUDA entry points take besides the outputs: the weights as
+    one flat row per member (W0, W1, ..., row-major [in, out]; bf16 when
+    ``s.bf16``), the biases likewise in f32, the layer widths and the 16
+    scalars."""
+    if len(s.layers) > 16:
+        raise ValueError("the CUDA kernel takes at most 16 layers")
+    p = s.y0.shape[0]
+    wflat = torch.cat([w.reshape(p, -1) for w, _ in s.layers], dim=1)
+    if s.bf16:
+        wflat = wflat.to(torch.bfloat16)    # exact: the setup rounded them
+    bflat = torch.cat([b.reshape(p, -1) for _, b in s.layers], dim=1)
+    sizes = [s.layers[0][0].shape[1]] + [w.shape[2] for w, _ in s.layers]
+    p1, p2, p3, p4 = s.base_a if s.base_a else (0.0, 0.0, 0.0, 0.0)
+    f = np.float32
+    scal = (ctypes.c_float * 16)(
+        f(s.t0), f(1.0 / s.dt_knot), f(s.dt_knot * 10.0), f(s.t_end),
+        f(s.t_end - s.t0), f(s.rtol), f(s.atol), f(float(s.trips)),
+        p1, p2, p3, p4, *s.gate)
+    return (wflat.contiguous(), bflat.contiguous(),
+            (ctypes.c_int * len(sizes))(*sizes), scal)
+
+
 def _trip_solve_cuda(s: _Setup):
     """Launch the cooperative trip kernel (csrc/fused_solve.cu) on the
     tensors' device and current stream; same outputs as the plain version.
     A thread block owns up to MAX_ROW_TILE rows of one member (fewer with
     ``q_split``; the result does not depend on the tiling).  Raises on a
     refused launch; never synchronises."""
-    if s.bf16:
-        raise NotImplementedError(
-            "mxu_bf16 has no CUDA kernel yet; the kernel takes f32 weights")
-    if len(s.layers) > 16:
-        raise ValueError("the CUDA kernel takes at most 16 layers")
-    from ionflux_torch.ops._build import load_library
+    from ionflux_torch.ops._build import launch
 
-    lib = load_library("fused_solve")
     dev = s.vpad.device
     p, q = s.y0.shape[:2]
-    sizes = [s.layers[0][0].shape[1]] + [w.shape[2] for w, _ in s.layers]
+    wflat, bflat, c_sizes, scal = _kernel_inputs(s)
     row_tile = min(MAX_ROW_TILE, q // s.q_split)
-    # one flat f32 row per member: W0, b0, W1, b1, ...
-    wflat = torch.cat([t.reshape(p, -1) for w, b in s.layers
-                       for t in (w, b)], dim=1).contiguous()
-    tiles = -(-q // row_tile)
-    grid = p * tiles
+    grid = p * -(-q // row_tile)
     rec_sc = torch.empty((s.trips, 2), dtype=torch.float32, device=dev)
     rec_y = torch.empty((s.trips, p, q, 2), dtype=torch.float32, device=dev)
     rec_k = torch.empty((s.trips, 7, p, q, 2), dtype=torch.float32,
@@ -353,26 +385,13 @@ def _trip_solve_cuda(s: _Setup):
     alive = torch.empty((p, q), dtype=torch.uint8, device=dev)
     partial = torch.empty((2, grid, 2), dtype=torch.int32, device=dev)
     y0 = s.y0.contiguous()
-    p1, p2, p3, p4 = s.base_a if s.base_a else (0.0, 0.0, 0.0, 0.0)
-    f = np.float32
-    scal = (ctypes.c_float * 16)(
-        f(s.t0), f(1.0 / s.dt_knot), f(s.dt_knot * 10.0), f(s.t_end),
-        f(s.t_end - s.t0), f(s.rtol), f(s.atol), f(float(s.trips)),
-        p1, p2, p3, p4, *s.gate)
-    c_sizes = (ctypes.c_int * len(sizes))(*sizes)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ionflux_trip_solve(
+    launch("fused_solve", "ionflux_trip_solve", dev,
             s.vpad.data_ptr(), y0.data_ptr(), wflat.data_ptr(),
-            wflat.shape[1], rec_sc.data_ptr(), rec_y.data_ptr(),
-            rec_k.data_ptr(), n_out.data_ptr(), alive.data_ptr(),
-            partial.data_ptr(), c_sizes, len(s.layers), p, q,
-            s.vpad.shape[1], row_tile, s.trips, s.block, int(s.cull),
-            int(bool(s.base_a)), scal, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused trip kernel launch failed: "
-            f"{lib.ionflux_error_string(err).decode()} (cudaError {err})")
+            wflat.shape[1], bflat.data_ptr(), bflat.shape[1], int(s.bf16),
+            rec_sc.data_ptr(), rec_y.data_ptr(), rec_k.data_ptr(),
+            n_out.data_ptr(), alive.data_ptr(), partial.data_ptr(), c_sizes,
+            len(s.layers), p, q, s.vpad.shape[1], row_tile, s.trips,
+            s.block, int(s.cull), int(bool(s.base_a)), scal)
     return rec_sc, rec_y, rec_k, n_out, alive.bool()
 
 
@@ -432,7 +451,7 @@ def _dense_eval_ft(rec_sc, rec_y, rec_k, n_acc, n_valid, ts,
 
 
 def _sweep_setup(net, rgate, protos_v, ts, proto_t0, proto_dt, t_end, rtol,
-                 atol, trips, base_hh) -> _Setup:
+                 atol, trips, base_hh, block=SWEEP_BLOCK) -> _Setup:
     _check_f32("protos_v", protos_v, 2)
     layers = _layers(net)
     _check_layers(layers, member_axis=False, device=protos_v.device)
@@ -441,8 +460,8 @@ def _sweep_setup(net, rgate, protos_v, ts, proto_t0, proto_dt, t_end, rtol,
         raise ValueError(
             f"the sweep kernel takes at most {SWEEP_MAX_ROWS} protocol rows "
             f"(got B={b}); split the family, as eval.simulate_family does")
-    if trips % SWEEP_BLOCK:
-        raise ValueError(f"trips must be a multiple of {SWEEP_BLOCK}, "
+    if trips < 1 or trips % block:
+        raise ValueError(f"trips must be a positive multiple of {block}, "
                          f"got {trips}")
     gate, base_a = _gate_tuples(rgate, base_hh)
     return _Setup(
@@ -451,7 +470,7 @@ def _sweep_setup(net, rgate, protos_v, ts, proto_t0, proto_dt, t_end, rtol,
         gate=gate, base_a=base_a, t0=float(proto_t0), dt_knot=float(proto_dt),
         t_end=float(t_end) if t_end is not None else float(ts[-1]),
         rtol=float(rtol), atol=float(atol), trips=int(trips),
-        block=SWEEP_BLOCK, cull=False)
+        block=block, cull=False)
 
 
 def _sweep(net, rgate, protos_v, ts, *, proto_t0, proto_dt, t_end, rtol,
@@ -587,6 +606,15 @@ def _popsweep_setup(nets, rgate, protos_v, ts, proto_t0, proto_dt, t_end,
                              f"{tuple(y0.shape)}")
         if q != q_req:
             y0 = torch.cat([y0, y0[:, -1:].expand(p, q - q_req, 2)], dim=1)
+    if mxu_bf16:
+        # bf16 weights; and past 8 padded rows the reference folds each
+        # bias into its weight matrix as a row against a ones column before
+        # the cast to bf16 (fold_bias = q > 8, pallas_solve.py:1533, a
+        # Mosaic workaround), so there the biases are bf16 too.  The ones
+        # column is exact in bf16; summing the bias inside the dot only
+        # reorders f32 sums.
+        layers = [(_bf16_round(w), _bf16_round(b) if q > 8 else b)
+                  for w, b in layers]
     block = popsweep_block(q)
     gate, base_a = _gate_tuples(rgate, base_hh)
     return _Setup(
@@ -631,9 +659,10 @@ def fused_nnf_popsweep_solve_ft(
     NN-d; ``y0`` [P, Q, 2] seeds each lane (NaN starts a lane dead);
     ``cull`` enables the pace cull; ``q_split`` (a divisor of the padded Q)
     spreads each member's rows over that many thread blocks on the card,
-    with the same result.  ``mxu_bf16`` rounds MLP operands to bf16 with
-    f32 sums (plain version only).  CUDA tensors run the kernel; CPU
-    tensors run ``fused_nnf_popsweep_solve_ft_plain``."""
+    with the same result.  ``mxu_bf16`` rounds the MLP operands (each
+    layer's input and weights, and the biases too where the padded Q > 8)
+    to bf16 with f32 sums.  CUDA tensors run the kernel; CPU tensors run
+    ``fused_nnf_popsweep_solve_ft_plain``."""
     return _popsweep(nets, rgate, protos_v, ts, proto_t0=proto_t0,
                      proto_dt=proto_dt, t_end=t_end, rtol=rtol, atol=atol,
                      trips=trips, base_hh=base_hh, y0=y0,
@@ -735,3 +764,142 @@ def fused_nnf_pop_solve_ft_plain(nets, rgate: HHParams,
     return _pop(nets, rgate, proto_v, ts, proto_t0=proto_t0,
                 proto_dt=proto_dt, t_end=t_end, rtol=rtol, atol=atol,
                 trips=trips, plain=True)
+
+
+# ---------------------------------------------------------------------------
+# B6: the adaptive while-loop sweep (one shared net x B protocols)
+# ---------------------------------------------------------------------------
+#
+# The first-generation solve.  Unlike the trip solves above it has no
+# per-lane death and no blocks: every step is tested against
+# ratio = sqrt(max over lanes of mean((err/scale)^2)) and accepted when
+# ratio <= 1 and every lane's y1 and the ratio are finite, so one
+# non-finite lane rejects every step until max_steps and the whole launch
+# evaluates to inf.  Only accepted steps are recorded, at row n_acc; the loop
+# runs while t < t_end, fewer than max_steps steps were taken, fewer than
+# max_rec were accepted and every state is finite.  n_out = (n_acc, or -n_acc
+# when t_end was not reached, and the steps taken).
+
+
+def _while_solve_plain(s: _Setup, max_steps: int):
+    """B6's while loop in PyTorch ops, one host read per step.  Returns
+    (rec_sc [max_rec, 2], rec_y [max_rec, 1, B, 2], rec_k [max_rec, 7, 1, B,
+    2], n_out int32 [2])."""
+    f32 = torch.float32
+    dev = s.vpad.device
+    rhs_all = _mlp_rhs(s)
+    t = torch.tensor(s.t0, dtype=f32, device=dev)
+    y = s.y0
+    f = rhs_all(t, y)
+    h = torch.tensor(s.dt_knot * 10.0, dtype=f32, device=dev)
+    up = torch.tensor(_MAXF, dtype=f32, device=dev)
+    one = torch.ones((), dtype=f32, device=dev)
+    rec_sc = torch.zeros((s.trips, 2), dtype=f32, device=dev)
+    rec_y = torch.zeros((s.trips, *y.shape), dtype=f32, device=dev)
+    rec_k = torch.zeros((s.trips, 7, *y.shape), dtype=f32, device=dev)
+    n_acc = n_step = 0
+    go = True
+    while go:
+        h_eff = torch.clamp(torch.minimum(h, s.t_end - t), min=1e-8)
+        ks, y1, err = _dp5_attempt(rhs_all, t, y, f, h_eff)
+        scale = s.atol + s.rtol * torch.maximum(torch.abs(y), torch.abs(y1))
+        ratio = torch.sqrt(torch.max(torch.mean(torch.square(err / scale),
+                                                dim=-1)))
+        accept = ((ratio <= 1.0) & torch.isfinite(y1).all()
+                  & torch.isfinite(ratio))
+        t_new = torch.where(accept, t + h_eff, t)
+        y_new = torch.where(accept, y1, y)
+        factor = _SAFETY * torch.exp(
+            -0.2 * torch.log(torch.clamp(ratio, min=1e-10)))
+        factor = torch.where(torch.isfinite(factor), factor, _MINF)
+        h = h_eff * torch.minimum(torch.clamp(factor, min=_MINF),
+                                  torch.where(accept, up, one))
+        accepted, before_end, finite = torch.stack([
+            accept, t_new < s.t_end, torch.isfinite(y_new).all()]).tolist()
+        if accepted:
+            rec_sc[n_acc] = torch.stack([t, h_eff])
+            rec_y[n_acc] = y
+            rec_k[n_acc] = torch.stack(ks)
+            n_acc += 1
+            f = ks[6]
+        t, y = t_new, y_new
+        n_step += 1
+        go = (before_end and n_step < max_steps and n_acc < s.trips
+              and finite)
+    ok = not before_end and finite
+    n_out = torch.tensor([n_acc if ok else -n_acc, n_step],
+                         dtype=torch.int32, device=dev)
+    return rec_sc, rec_y, rec_k, n_out
+
+
+def _while_solve_cuda(s: _Setup, max_steps: int):
+    """Launch B6's cooperative while-loop kernel (csrc/fused_solve.cu); the
+    same outputs as ``_while_solve_plain``.  Raises on a refused launch;
+    never synchronises."""
+    from ionflux_torch.ops._build import launch
+
+    dev = s.vpad.device
+    b = s.y0.shape[1]
+    wflat, bflat, c_sizes, scal = _kernel_inputs(s)
+    row_tile = min(MAX_ROW_TILE, b)
+    rec_sc = torch.empty((s.trips, 2), dtype=torch.float32, device=dev)
+    rec_y = torch.empty((s.trips, 1, b, 2), dtype=torch.float32, device=dev)
+    rec_k = torch.empty((s.trips, 7, 1, b, 2), dtype=torch.float32,
+                        device=dev)
+    n_out = torch.empty(2, dtype=torch.int32, device=dev)
+    partial = torch.empty((2, -(-b // row_tile), 2), dtype=torch.int32,
+                          device=dev)
+    launch("fused_solve", "ionflux_while_solve", dev,
+            s.vpad.data_ptr(), wflat.data_ptr(), bflat.data_ptr(),
+            rec_sc.data_ptr(), rec_y.data_ptr(), rec_k.data_ptr(),
+            n_out.data_ptr(), partial.data_ptr(), c_sizes, len(s.layers), b,
+            s.vpad.shape[1], row_tile, s.trips, int(max_steps), scal)
+    return rec_sc, rec_y, rec_k, n_out
+
+
+def _while(net, rgate, protos_v, ts, *, proto_t0, proto_dt, t_end, rtol,
+           atol, max_steps, max_rec, plain):
+    if int(max_steps) < 1:
+        raise ValueError(f"max_steps must be >= 1, got {max_steps}")
+    s = _sweep_setup(net, rgate, protos_v, ts, proto_t0, proto_dt, t_end,
+                     rtol, atol, int(max_rec), None, block=1)
+    if plain or not protos_v.is_cuda:
+        out = _while_solve_plain(s, int(max_steps))
+    else:
+        out = _while_solve_cuda(s, int(max_steps))
+        fused_nnf_solve.launches += 1
+    rec_sc, rec_y, rec_k, n_out = out
+    return _dense_eval_popsweep_ft(rec_sc, rec_y, rec_k, n_out[0],
+                                   n_out[0].abs(), ts)[0]
+
+
+def fused_nnf_solve(net, rgate: HHParams, protos_v: torch.Tensor,
+                    ts: torch.Tensor, *, proto_t0: float = 0.0,
+                    proto_dt: float = 0.1, t_end: float | None = None,
+                    rtol: float = 1e-5, atol: float = 1e-7,
+                    max_steps: int = 100_000,
+                    max_rec: int = 16384) -> torch.Tensor:
+    """Adaptive fused solve of one NN-f net over B <= 128 protocols from
+    rest, as a data-dependent while loop on one shared controller: ys
+    [B, T, 2].  Inf everywhere if t_end is not reached within ``max_steps``
+    steps and ``max_rec`` accepted ones, or if any lane goes non-finite.
+    CUDA tensors run the kernel; CPU tensors run
+    ``fused_nnf_solve_plain``."""
+    return _while(net, rgate, protos_v, ts, proto_t0=proto_t0,
+                  proto_dt=proto_dt, t_end=t_end, rtol=rtol, atol=atol,
+                  max_steps=max_steps, max_rec=max_rec, plain=False)
+
+
+fused_nnf_solve.launches = 0
+
+
+def fused_nnf_solve_plain(net, rgate: HHParams, protos_v: torch.Tensor,
+                          ts: torch.Tensor, *, proto_t0: float = 0.0,
+                          proto_dt: float = 0.1, t_end: float | None = None,
+                          rtol: float = 1e-5, atol: float = 1e-7,
+                          max_steps: int = 100_000,
+                          max_rec: int = 16384) -> torch.Tensor:
+    """The plain PyTorch version of ``fused_nnf_solve``, on any device."""
+    return _while(net, rgate, protos_v, ts, proto_t0=proto_t0,
+                  proto_dt=proto_dt, t_end=t_end, rtol=rtol, atol=atol,
+                  max_steps=max_steps, max_rec=max_rec, plain=True)

@@ -55,14 +55,6 @@ def _check_population(params: torch.Tensor, proto_v: torch.Tensor) -> int:
     return b
 
 
-def _launch(fn, lib, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(
-            f"HH kernel launch failed: "
-            f"{lib.ionflux_error_string(err).decode()} (cudaError {err})")
-
-
 def _hh_rates(params: torch.Tensor, v: torch.Tensor):
     """k1..k4 [..., B] of every lane at voltages v [...]."""
     v = v[..., None]
@@ -118,9 +110,8 @@ def _hh_pop_solve(params, proto_v, y0, *, proto_t0, proto_dt, t_end, rtol,
             atol=atol, trips=trips, block=SWEEP_BLOCK, cull="ratio")
         return rec_sc, rec_y, rec_k, n_out, alive[0]
 
-    from ionflux_torch.ops._build import load_library
+    from ionflux_torch.ops._build import launch
 
-    lib = load_library("hh_solve")
     rec_sc = torch.empty((trips, 2), dtype=torch.float32, device=dev)
     rec_y = torch.empty((trips, 1, b, 2), dtype=torch.float32, device=dev)
     rec_k = torch.empty((trips, 7, 1, b, 2), dtype=torch.float32, device=dev)
@@ -131,12 +122,10 @@ def _hh_pop_solve(params, proto_v, y0, *, proto_t0, proto_dt, t_end, rtol,
     scal = (ctypes.c_float * 8)(f(t0), f(1.0 / dt), f(dt * 10.0), f(t_end),
                                 f(t_end - t0), f(rtol), f(atol),
                                 f(float(trips)))
-    with torch.cuda.device(dev):
-        _launch(lib.ionflux_hh_trip_solve, lib, vpad.data_ptr(),
-                params.data_ptr(), y0.data_ptr(), rec_sc.data_ptr(),
-                rec_y.data_ptr(), rec_k.data_ptr(), n_out.data_ptr(),
-                alive.data_ptr(), b, n_pad, trips, SWEEP_BLOCK, scal,
-                torch.cuda.current_stream(dev).cuda_stream)
+    launch("hh_solve", "ionflux_hh_trip_solve", dev, vpad.data_ptr(),
+           params.data_ptr(), y0.data_ptr(), rec_sc.data_ptr(),
+           rec_y.data_ptr(), rec_k.data_ptr(), n_out.data_ptr(),
+           alive.data_ptr(), b, n_pad, trips, SWEEP_BLOCK, scal)
     fused_hh_pop_solve_ft.launches += 1
     return rec_sc, rec_y, rec_k, n_out, alive.bool()
 
@@ -242,9 +231,8 @@ def _rk4(params, proto_v, *, proto_t0, proto_dt, dt_out, n_out, n_sub, y0,
     if plain or not params.is_cuda:
         return _rk4_plain(params, proto_v, t0, dt, dt_out, n_out, n_sub, y0)
 
-    from ionflux_torch.ops._build import load_library
+    from ionflux_torch.ops._build import launch
 
-    lib = load_library("hh_solve")
     dev = params.device
     out = torch.empty((n_out, b, 2), dtype=torch.float32, device=dev)
     params, proto_v = params.contiguous(), proto_v.contiguous()
@@ -252,11 +240,9 @@ def _rk4(params, proto_v, *, proto_t0, proto_dt, dt_out, n_out, n_sub, y0,
     f = np.float32
     scal = (ctypes.c_float * 8)(f(t0), f(1.0 / dt), f(dt_out), f(h),
                                 f(0.5 * h), f(h / 6.0), f(y0[0]), f(y0[1]))
-    with torch.cuda.device(dev):
-        _launch(lib.ionflux_hh_rk4, lib, proto_v.data_ptr(),
-                params.data_ptr(), out.data_ptr(), b, proto_v.shape[0],
-                n_out, n_sub, scal,
-                torch.cuda.current_stream(dev).cuda_stream)
+    launch("hh_solve", "ionflux_hh_rk4", dev, proto_v.data_ptr(),
+           params.data_ptr(), out.data_ptr(), b, proto_v.shape[0], n_out,
+           n_sub, scal)
     fused_hh_rk4.launches += 1
     return out.permute(1, 0, 2).contiguous()
 

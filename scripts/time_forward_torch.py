@@ -1,0 +1,107 @@
+#!/usr/bin/env python
+"""Time the forward path of one checkout of ``ionflux_torch`` on the card,
+to compare two commits inside one run.
+
+    python3 scripts/time_forward_torch.py [--root DIR] [--reps 3]
+
+``--root`` names the checkout whose ``ionflux_torch`` is timed (default:
+this one); its kernels are built there at first use.  The weights, the
+protocols and chip_smoke.py's helpers come from this checkout.  The shapes
+are chip_smoke.py's phases (b), (c) and (k): the trained d1 sweep over the
+activation family (B = 7, 80,001 knots, rtol 1e-6), 64 perturbed d1
+members over the deactivation family (9 rows padded to 16, 100,001 knots)
+and the same members on the +20 mV activation protocol, 4096 trips each.
+
+Prints one JSON line: the checkout, the card's name and power limit, the
+host seconds per call of ``simulate_family`` and ``simulate_population``
+(mean of ``--reps`` calls after a warm-up, each ending in a synchronise)
+and each trip kernel's milliseconds (CUDA events, mean of ``--reps``
+launches after a warm-up).  To compare a parent with a change, run parent,
+change, change, parent in one call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def main(root: str, reps: int) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("time_forward_torch: no CUDA device")
+    sys.path.insert(0, os.path.abspath(root))
+    C = _chip_smoke()
+    from ionflux_torch import eval as E
+    from ionflux_torch import protocols as P
+    from ionflux_torch.models.registry import SYNTHETIC
+    from ionflux_torch.ops import fused_solve as F
+    from ionflux_torch.utils.ckpt import load_pytree, params_from_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    d1_path = os.path.join(HERE, "out", "d1", "model.npz")
+    d1 = load_pytree(d1_path, "nnf", device=dev)
+    pop = params_from_leaves(C.population(C.npz_leaves(d1_path), C.P_POP, 0),
+                             "nnf", dev)
+    act = P.activation_family(0.1, device=dev)
+    deact = P.deactivation_family(0.1, device=dev)
+    act20 = P.activation_protocol(20.0, 0.1, device=dev)
+    ts_a, ts_d, ts_20 = act[0].times(), deact[0].times(), act20.times()
+    b_a, b_d = P.stack(act), P.stack(deact)
+
+    calls = {
+        "sweep": lambda: E.simulate_family("nnf", d1, act, ts_a, SYNTHETIC,
+                                           backend="pallas", trips=C.TRIPS),
+        "popsweep": lambda: E.simulate_population(
+            "nnf", pop, deact, ts_d, SYNTHETIC, trips=C.TRIPS)}
+    host = {}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            call()
+            torch.cuda.synchronize()
+        host[name] = (time.perf_counter() - t) / reps
+
+    setups = {
+        "B2 sweep": F._sweep_setup(
+            d1.net, d1.rgate, b_a.v, ts_a, 0.0, 0.1, float(ts_a[-1]), 1e-6,
+            1e-8, C.TRIPS, None),
+        "B1 popsweep": F._popsweep_setup(
+            pop.net, pop.rgate, b_d.v, ts_d, 0.0, 0.1, float(ts_d[-1]), 1e-5,
+            1e-7, C.TRIPS, None, None, True, False, 1),
+        "B4 population": F._pop_setup(
+            pop.net.layers, pop.rgate, act20.v, ts_20, 0.0, 0.1,
+            float(ts_20[-1]), 1e-5, 1e-7, C.TRIPS)}
+    kernel = {name: C.cuda_ms(lambda s=s: F._trip_solve_cuda(s), reps)[0]
+              for name, s in setups.items()}
+    out = {"root": os.path.abspath(root), "card": C.device_line(),
+           "host_s": host, "kernel_ms": kernel}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE,
+                    help="the checkout whose ionflux_torch is timed")
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    main(args.root, args.reps)

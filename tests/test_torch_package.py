@@ -21,6 +21,7 @@ from ionflux_torch import protocols as TP
 from ionflux_torch import protorec as TRec
 from ionflux_torch.models import nn as TN
 from ionflux_torch.models import registry as TR
+from ionflux_torch.ops import bias_probe as TB
 from ionflux_torch.ops import fused_solve as TK
 from ionflux_torch.ops import hh_solve as TH
 
@@ -43,7 +44,7 @@ def _protos(levels=(-40.0, 20.0), device="cpu"):
 
 
 def test_port_imports_neither_jax_nor_ionflux():
-    """Every module of the port, chip_smoke.py and the port's study script,
+    """Every module of the port, chip_smoke.py and the port's scripts,
     imported in a fresh interpreter: neither jax nor ionflux is loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -53,11 +54,13 @@ def test_port_imports_neither_jax_nor_ionflux():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "for n in ('models.markov', 'protorec', 'solver.chained',\n"
-        "          'ops.hh_solve', 'ops._build', 'fit.cmaes'):\n"
+        "          'ops.hh_solve', 'ops._build', 'fit.cmaes',\n"
+        "          'ops.fused_solve', 'ops.bias_probe'):\n"
         "    assert 'ionflux_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
-        "import train_d0_torch\n"
+        "import train_d0_torch, probe_mosaic_bias_fault_torch\n"
+        "import time_forward_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ionflux'))\n"
         "assert not bad, bad\n"
@@ -99,19 +102,45 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     assert args[2].device.type == "cpu"
     assert TRec.protocol("pr4-cell5", device="cpu").v.device.type == "cpu"
     # CPU tensors take the plain version: no kernel launch is counted
-    before = (TK.fused_nnf_solve_ft.launches,
-              TK.fused_nnf_popsweep_solve_ft.launches)
+    counted = (TK.fused_nnf_solve_ft, TK.fused_nnf_popsweep_solve_ft,
+               TK.fused_nnf_solve, TB.bias_probe)
+    before = [k.launches for k in counted]
     ys = TK.fused_nnf_solve_ft(_net(), TR.HH_B06, _protos(),
                                torch.tensor([0.0, 4000.0]), proto_dt=1.0,
                                trips=1024)
     assert ys.device.type == "cpu" and bool(torch.isfinite(ys).all())
-    assert (TK.fused_nnf_solve_ft.launches,
-            TK.fused_nnf_popsweep_solve_ft.launches) == before
+    ys = TK.fused_nnf_solve(_net(), TR.HH_B06, _protos(),
+                            torch.tensor([0.0, 4000.0]), proto_dt=1.0)
+    assert ys.device.type == "cpu" and bool(torch.isfinite(ys).all())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _probe_script().main("fold")
+    assert _probe_script().main("fold", device="cpu").device.type == "cpu"
+    assert [k.launches for k in counted] == before
+
+
+def _probe_script():
+    """The port's probe script, imported from scripts/."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    try:
+        import probe_mosaic_bias_fault_torch
+    finally:
+        sys.path.pop(0)
+    return probe_mosaic_bias_fault_torch
 
 
 def _bad_sweep(case):
+    """``case`` names what is wrong; a "while: " prefix sends it to the
+    while-loop sweep (fused_nnf_solve) instead of the fixed-trip one."""
+    solver, _, case = case.rpartition(": ")
     net, v = _net(), _protos()
     ts = torch.tensor([0.0, 8000.0])
+    if solver == "while":
+        kw = dict(proto_dt=1.0, max_steps=300, max_rec=256)
+        if case in ("max_rec 0", "max_steps 0"):
+            kw[case.split()[0]] = 0
+    else:
+        kw = dict(proto_dt=1.0, trips=300 if case == "trips not whole blocks"
+                  else 256)
     if case == "f64 protocols":
         v = v.double()
     elif case == "1-d protocols":
@@ -126,16 +155,17 @@ def _bad_sweep(case):
         net[0] = (torch.cat([net[0][0], net[0][0][:1]]), net[0][1])
     elif case == "129 rows":
         v = v[:1].expand(129, -1)
-    elif case == "trips not whole blocks":
-        return lambda: TK.fused_nnf_solve_ft(net, TR.HH_B06, v, ts,
-                                             proto_dt=1.0, trips=300)
-    return lambda: TK.fused_nnf_solve_ft(net, TR.HH_B06, v, ts,
-                                         proto_dt=1.0, trips=256)
+    fn = TK.fused_nnf_solve if solver == "while" else TK.fused_nnf_solve_ft
+    return lambda: fn(net, TR.HH_B06, v, ts, **kw)
 
 
 @pytest.mark.parametrize("case", [
     "f64 protocols", "1-d protocols", "int weights", "widths do not chain",
-    "two outputs", "three inputs", "129 rows", "trips not whole blocks"])
+    "two outputs", "three inputs", "129 rows", "trips not whole blocks",
+    "while: f64 protocols", "while: 1-d protocols", "while: int weights",
+    "while: widths do not chain", "while: two outputs",
+    "while: three inputs", "while: 129 rows", "while: max_rec 0",
+    "while: max_steps 0"])
 def test_sweep_wrapper_refuses_bad_inputs(case):
     with pytest.raises((TypeError, ValueError)):
         _bad_sweep(case)()
@@ -233,9 +263,19 @@ def test_popsweep_kernel_matches_plain_on_card(card):
     assert bool(torch.isinf(ys_k[2, 1]).all())
     ys_p = TK.fused_nnf_popsweep_solve_ft_plain(nets, TR.HH_B06, v, ts, **kw)
     _close_on_card(ys_k, ys_p)
-    with pytest.raises(NotImplementedError, match="mxu_bf16"):
-        TK.fused_nnf_popsweep_solve_ft(nets, TR.HH_B06, v, ts,
-                                       mxu_bf16=True, **kw)
+    # mxu_bf16: bf16 weights in the kernel; at Q = 9 (padded to 16) the
+    # biases are rounded to bf16 as well
+    for levels in ((-40.0, 0.0, 20.0), tuple(np.linspace(-40.0, 40.0, 9))):
+        vq = _protos(levels, device=card)
+        kw = dict(proto_dt=1.0, trips=2048, mxu_bf16=True)
+        before = TK.fused_nnf_popsweep_solve_ft.launches
+        ys_k = TK.fused_nnf_popsweep_solve_ft(nets, TR.HH_B06, vq, ts, **kw)
+        torch.cuda.synchronize()
+        assert TK.fused_nnf_popsweep_solve_ft.launches == before + 1
+        ys_p = TK.fused_nnf_popsweep_solve_ft_plain(nets, TR.HH_B06, vq, ts,
+                                                    **kw)
+        assert bool(torch.isfinite(ys_p).all())
+        _close_on_card(ys_k, ys_p)
 
 
 def _hh_population(b=16, device="cpu"):
@@ -306,3 +346,40 @@ def test_nnf_pop_kernel_matches_plain_on_card(card):
     assert tuple(ys_k.shape) == (5, 80, 2)
     assert bool(torch.isfinite(ys_k).all())
     _close_on_card(ys_k, ys_p)
+
+
+@pytest.mark.cuda
+def test_while_kernel_matches_plain_on_card(card):
+    """The while-loop sweep: kernel vs plain on a healthy family, and a
+    lane whose rates overflow (+5000 mV from 1000 ms) ending the whole
+    launch as inf in both within a small max_steps."""
+    net = _net(sizes=(2, 64, 64, 64, 1), device=card)
+    v = _protos((-40.0, 0.0, 20.0), device=card)
+    ts = torch.arange(50.0, 8000.0, 100.0, device=card)
+    before = TK.fused_nnf_solve.launches
+    ys_k = TK.fused_nnf_solve(net, TR.HH_B06, v, ts, proto_dt=1.0)
+    torch.cuda.synchronize()
+    assert TK.fused_nnf_solve.launches == before + 1
+    ys_p = TK.fused_nnf_solve_plain(net, TR.HH_B06, v, ts, proto_dt=1.0)
+    assert TK.fused_nnf_solve.launches == before + 1
+    assert bool(torch.isfinite(ys_p).all())
+    _close_on_card(ys_k, ys_p)
+    v[-1, 1000:] = 5000.0
+    kw = dict(proto_dt=1.0, t_end=2000.0, max_steps=300)
+    ts = torch.linspace(0.0, 2000.0, 41, device=card)
+    ys_k = TK.fused_nnf_solve(net, TR.HH_B06, v, ts, **kw)
+    ys_p = TK.fused_nnf_solve_plain(net, TR.HH_B06, v, ts, **kw)
+    assert bool(torch.isinf(ys_k).all()) and bool(torch.isinf(ys_p).all())
+
+
+@pytest.mark.cuda
+def test_bias_probe_kernel_matches_plain_on_card(card):
+    w, b = _probe_script().probe_inputs(card)
+    for fold in (False, True):
+        before = TB.bias_probe.launches
+        out_k = TB.bias_probe(w, b, fold=fold)
+        torch.cuda.synchronize()
+        assert TB.bias_probe.launches == before + 1
+        out_p = TB.bias_probe_plain(w, b, fold=fold)
+        assert tuple(out_k.shape) == (64, 128)
+        assert float((out_k - out_p).abs().max()) <= 1e-5

@@ -2,10 +2,12 @@
 fused_nnf_popsweep_solve_ft, P member nets x Q protocols) against the Pallas
 kernel of ionflux/ops/pallas_solve.py run with interpret=True: NN-f, NN-d,
 odd Q, per-lane death, the pace cull, q_split, the record stream and
-eval.simulate_population.  Both run the same trip algorithm in f32: the
-gates agree to 1e-4 away from the protocols' step edges
-(``_torch_helpers.ts_between_edges`` says why not on them), the executed
-trips (n_valid) are equal and the accepted steps agree to 5%."""
+eval.simulate_population, and the mxu_bf16 mode.  Both run the same trip
+algorithm in f32: the gates agree to 1e-4 away from the protocols' step
+edges (``_torch_helpers.ts_between_edges`` says why not on them), the
+executed trips (n_valid) are equal and the accepted steps agree to 5%."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -211,6 +213,45 @@ def test_popsweep_mxu_bf16_plain_rounds_operands():
     assert bool(torch.isfinite(y16).all())
     dev = float((y32 - y16).abs().max())
     assert 0.0 < dev < 0.02
+
+
+def _bf16_net(seed: int = 3, members: int = 2):
+    """Hidden-layer biases near 1, whose low bits bf16 drops, and a small
+    output layer, so that the gates stay O(1)."""
+    rs = np.random.RandomState(seed + 100)
+    net = np_net(seed, members=members)
+    hidden = [(w, (1.0 + 0.1 * rs.randn(*b.shape)).astype(np.float32))
+              for w, b in net[:-1]]
+    w, b = net[-1]
+    return hidden + [((0.3 * w).astype(np.float32), b)]
+
+
+@pytest.mark.parametrize("q_req", [9, 4])
+def test_popsweep_mxu_bf16_matches_pallas_interpret(q_req):
+    """mxu_bf16 against the reference: bf16 weights and layer inputs with
+    f32 sums.  Past 8 padded rows (Q = 9 pads to 16) the reference folds
+    each bias into its bf16 weights (fold_bias), so the biases are rounded
+    too, and the port rounds them there; at Q = 4 they stay f32.  The
+    rounding moves these gates by over 10x the tolerance."""
+    net = _bf16_net()
+    levels = np.linspace(-40.0, 40.0, q_req)
+    rt, rj, tst, tsj = _records_pair(net, levels, mxu_bf16=True)
+    ys_t = _assert_same_solve(rt, rj, tst, tsj)
+    assert bool(torch.isfinite(ys_t).all())
+    # the same solve with the biases left f32
+    vt = _protos(levels)[1]
+    s = TK._popsweep_setup(torch_net(net), TR.HH_B06, vt, tst, 0.0, 1.0,
+                           None, 1e-5, 1e-7, 2048, None, None, True, True, 1)
+    f32_bias = dataclasses.replace(s, layers=[
+        (w, b) for (w, _), (_, b) in zip(s.layers, torch_net(net))])
+    out = TK._trip_solve_plain(f32_bias)
+    ys_b = TK.PopsweepRecords(*out[:3], out[3][0], out[3][1], rt.p, rt.q,
+                              q_req, out[4]).evaluate(tst)
+    effect = float((ys_t - ys_b).abs().max())
+    if q_req > 8:
+        assert effect >= 10 * GATE_TOL
+    else:
+        assert effect == 0.0
 
 
 def test_simulate_population_matches_reference_and_family():
