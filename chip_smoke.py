@@ -64,6 +64,10 @@ after:
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
+The rows of the three launches that take the ring layer pass (the popsweep
+in f32 and in bf16, the population solve) also carry their executed trips
+(``n_valid``), the milliseconds per executed trip and the pass's design.
+
 Any failing phase raises, so the script exits non-zero and prints no result.
 Without a CUDA device it exits with code 2.
 """
@@ -215,6 +219,20 @@ def trip_bound(n_valid: int, lanes: int, rhs_ops: int, in_bytes: int,
                     flops)
 
 
+# The layer pass of the population launches (B1 in both modes, B4): each
+# member's weights streamed through a ring of three shared-memory stages by
+# bulk asynchronous copies (TMA, one mbarrier per stage), multiplied from
+# shared memory (mma.sync in bf16); csrc/fused_solve.cu says more.
+RING_DESIGN = "pr4-bulk-copy-ring-3x64KB+mma.sync-bf16"
+
+
+def ring_fields(n_valid: int, ms: float) -> dict:
+    """The extra kernel-row fields of a launch through the ring pass: its
+    executed trips, the milliseconds per executed trip and the design."""
+    return dict(n_valid=n_valid, ms_per_trip=ms / n_valid,
+                design=RING_DESIGN)
+
+
 def check_counts(what: str, launches: dict) -> None:
     log(f"{what}: launches {launches}")
     for n, c in launches.items():
@@ -358,7 +376,8 @@ def forward_path(dev, rows) -> dict:
     ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1)
     n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
     log(f"(c) popsweep P={P_POP} Q=9->16: n_acc/n_valid kernel {n_k}, plain "
-        f"{n_p}; kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms; block {s.block}")
+        f"{n_p}; kernel {ms_k:.3f} ms ({ms_k / n_k[1]:.4f} ms per executed "
+        f"trip), plain {ms_p:.1f} ms; block {s.block}")
     q_pad = s.y0.shape[1]
     recs = [F.PopsweepRecords(*o[:3], o[3][0], o[3][1], P_POP, q_pad, 9,
                               o[4]) for o in (out_k, out_p)]
@@ -380,7 +399,7 @@ def forward_path(dev, rows) -> dict:
         replaces="ionflux/ops/pallas_solve.py:1459",
         launches=launches["fused_nnf_popsweep_solve_ft"], max_abs_err=err,
         ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None))
+        library_ms=None, **ring_fields(n_k[1], ms_k)))
     return dict(i_pop=i_pop, i_ode=i_ode, b2=b2)
 
 
@@ -637,7 +656,8 @@ def d0_path(dev, rows) -> None:
     ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1)
     n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
     log(f"(k) population solve P={P_POP}: n_acc/n_valid kernel {n_k}, plain "
-        f"{n_p}; kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
+        f"{n_p}; kernel {ms_k:.3f} ms ({ms_k / n_k[1]:.4f} ms per executed "
+        f"trip), plain {ms_p:.1f} ms")
     ys_p = F.fused_nnf_pop_solve_ft_plain(pop64.net.layers, pop64.rgate,
                                           act20.v, ts_act, **pop_kw)
     if not bool(torch.isfinite(ys_p).all()):
@@ -651,7 +671,7 @@ def d0_path(dev, rows) -> None:
         replaces="ionflux/ops/pallas_solve.py:760",
         launches=launches["fused_nnf_pop_solve_ft"], max_abs_err=err,
         ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None))
+        library_ms=None, **ring_fields(n_k[1], ms_k)))
 
 
 def accepted_trips(rec_sc: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -852,7 +872,7 @@ def while_probe_path(dev, rows, fwd: dict) -> None:
         replaces="ionflux/ops/pallas_solve.py:1459",
         launches=launches["fused_nnf_popsweep_solve_ft"], max_abs_err=err,
         ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None))
+        library_ms=None, **ring_fields(n_k[1], ms_k)))
 
     # ---- (n) the probe kernel vs plain, bias vs fold -----------------------
     w, b = PR.probe_inputs(dev)

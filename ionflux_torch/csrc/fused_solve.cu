@@ -12,38 +12,68 @@
 //
 // Design.  One persistent cooperative launch per solve.  Block (member m,
 // row tile) owns up to RT protocol rows of member m.  Every trip, each block
-// evaluates the 6 new DP5 stages of its lanes: per stage an MLP pass of
-// [RT, width] activations (shared memory, double-buffered) against the
-// member's row-major [in, out] f32 weights, streamed from L2/global memory.
-// The launch shares ONE step controller: each block writes its lanes' max
-// live error ratio to partial[seq & 1][block], the grid synchronises, and
-// every block reduces all partials itself and runs the same f32 controller
-// algebra, so t, h and accept agree everywhere with no further traffic.
-// Early exit and the pace cull happen at block ends, as in the reference.
+// evaluates the 6 new DP5 stages of its lanes: per stage one MLP pass of its
+// RT activation rows (shared memory, double-buffered) against the member's
+// weights.  The launch shares ONE step controller: each block writes its
+// lanes' max live error ratio to partial[seq & 1][block], the grid
+// synchronises, and every block reduces all partials itself and runs the same
+// f32 controller algebra, so t, h and accept agree everywhere with no further
+// traffic.  Early exit and the pace cull happen at block ends, as in the
+// reference.  The MLP is 6 * sum(in * out) MACs per lane per trip (1.2 M at
+// the trained 200-wide, 7-layer width); the records, the only output, are ~16
+// floats per lane per trip.
 //
-// What bounds it on this card: operations.  The MLP is 6 * 2 * sum(in*out)
-// FLOPs per lane per trip (2.4 MFLOP at the trained 200-wide, 7-layer
-// width), run as f32 FMA on the CUDA cores: the kernel takes f32 weights and
-// TF32 would leave the plain version's arithmetic.  The records, the only
-// output, are ~16 floats per lane per trip, far below that in bytes.  What
-// the design does about it: all lane state stays in shared memory for the
-// whole solve, each member's weights (0.8 MB f32) stay L2-resident, only the
-// record stream goes to HBM, and one grid barrier per trip is the only
-// traffic between blocks.  What it does not do yet: a block's RT rows run
-// the 42 dependent layer passes of a trip one after another on one SM, so a
-// launch with few blocks (the sweep: one block for B <= 32) uses a sliver of
-// the card.  chip_smoke.py measures each kernel against this bound; the
-// numbers are in PERF.md.
+// Two layer passes.  The sweep (P = 1) and the while-loop sweep keep mlp():
+// thread j owns output column j and walks k, loading W[k][j] from L2 per k
+// and feeding RT FMAs from row-major activations.  That pass waits on one
+// weight load per k-step, with few loads in flight per SM, so the population
+// launches, which stream a different member's 0.8 MB of f32 weights through
+// every block, ran at ~6% FMA issue on it (PERF.md, PR 4).  The popsweep and
+// the population solve (B1, B4) take mlp_ring() instead, chosen by the entry
+// point (the wrapper's `ring` flag), never by P:
 //
-// mxu_bf16 (WT = __nv_bfloat16): the weights are packed bf16, which halves
-// their L2-resident bytes; each layer's input is rounded to bf16 where it is
-// written; products and sums stay f32 (a product of two bf16 values is exact
-// in f32).  The biases stay f32 (the wrapper has rounded them to bf16 values
-// where the reference does).  With WT = float this is the f32 path.
+//   * The weights a block reads in a trip are known before it starts: layers
+//     0..L-1 of its member, over and over.  The wrapper packs each layer in
+//     chunks of at most 64 KB (k-rows of [in, out4] in f32; [out8, k + 8]
+//     slices of the transposed layer in bf16), each one contiguous and
+//     16-byte aligned, and a ring of kStages stages in dynamic shared memory
+//     receives them, one 1-D bulk copy (cp.async.bulk, the TMA engine) per
+//     chunk, completing an mbarrier per stage.  Thread 0 issues; the ring
+//     runs kStages - 1 chunks ahead of the product across layer, stage, trip
+//     and grid-barrier boundaries, since the sequence never depends on the
+//     activations.  A chunk is handed over by a wait on its stage's barrier
+//     and one __syncthreads, which also frees the stage of the chunk before
+//     it.  The kernel waits for the chunks in flight before it returns.
+//     (Per-thread 16-byte cp.async copies of the same chunks were slower,
+//     held by their issue whether the weights fit the L2 or not; PERF.md.)
+//   * f32 (CUDA cores, FMA): activations are k-major [k][RT + 4]; each
+//     thread owns tiles of 2 rows x 4 columns of a layer (1 x 4 at RT = 1)
+//     and sums k in one fixed order from shared memory whatever RT or
+//     q_split is, so q_split stays bit-identical.  RT = 1 (the population
+//     solve) is a mat-vec bounded by the weight bytes the ring streams.
+//   * The popsweep pads Q to a power of two with copies of its last row;
+//     the pass computes only the real rows (q_real) and a padded lane takes
+//     the MLP output of the last real row, its input bit for bit.
+//   * mxu_bf16 (tensor cores): mma.sync m16n8k16 bf16 x bf16 -> f32; the A
+//     fragments are the block's rows (16 per tile, exactly the padded Q = 16;
+//     two tiles at 32), built from the bf16-valued f32 activations, the B
+//     fragments the packed transposed weights; f32 sums, the f32 bias added
+//     after the product, the layer input rounded to bf16 where it is written
+//     (the reference's mxu_bf16 semantics).  k is zero-padded to 16 in the
+//     weights and in the activations.
+//
+// What bounds B1 and B4 on this card: per trip each block streams its
+// member's weights six times (6 x 0.8 MB f32, 6 x 0.45 MB bf16).  At P = 64
+// the f32 set (51.6 MB) does not stay in the 50 MB L2, so a trip moves 310
+// MB from HBM: B4 (one row) runs at that bound, ~0.1 ms per trip.  B1 f32 at
+// 16 rows adds ~0.1 ms of FMAs from shared memory to it; bf16 adds its
+// mma.sync pass to the copies and chunk handovers.  chip_smoke.py and
+// scripts/probe_ring_pass_torch.py measure it; the numbers are in PERF.md.
 //
 // Arithmetic follows the plain version's f32 order: the stage combinations,
 // error norm and controller use round-to-nearest intrinsics so the compiler
-// cannot contract them into FMAs; build without --use_fast_math.
+// cannot contract them into FMAs; build without --use_fast_math.  Only the
+// MLP's sum order parts kernel and plain.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -66,7 +96,8 @@ struct Partial {
 struct Args {
   const float* vpad;     // [Q, n_pad] knot voltages, end-padded
   const float* y0;       // [P, Q, 2]
-  const void* w;         // [P, w_stride] of WT: W0, W1, ... row-major [in, out]
+  const void* w;         // [P, w_stride] of WT: mlp(): W0, W1, ... row-major
+                         // [in, out]; mlp_ring(): the chunked packing
   const float* b;        // [P, b_stride]: b0, b1, ...
   float* rec_sc;         // [trips, 2]  (t, h_eff)
   float* rec_y;          // [trips, P, Q, 2]
@@ -78,6 +109,13 @@ struct Args {
   int n_layers;
   int sizes[kMaxLayers + 1];
   int wmax;
+  // mlp_ring only: per layer, its offset in a member's packed row (elements
+  // of WT), its chunk depth in k and its number of chunks; the ring's stage
+  // size in bytes (a multiple of 16)
+  int ring_off[kMaxLayers], ring_kc[kMaxLayers], ring_nch[kMaxLayers];
+  int stage_bytes;
+  int q_real;  // rows before the popsweep's padding (copies of row
+               // q_real - 1); the ring pass computes no padded row it can copy
   int p, q, n_pad, rt, tiles, trips, block, cull, has_base, max_steps;
   float t0, inv_dt, h0, t_end, span, rtol, atol, trips_f;
   float p1, p2, p3, p4, p5, p6, p7, p8;
@@ -127,13 +165,6 @@ __device__ float voltage(const Args& a, int row, float t) {
   return add(v0, mul(w, sub(v1, v0)));
 }
 
-// A weight as f32: bf16 widens exactly (its bits are the top half of the f32)
-__device__ __forceinline__ float wload(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float wload(const __nv_bfloat16* p) {
-  const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned>(u) << 16);
-}
-
 // A layer input as the MLP consumes it: itself in f32, rounded to the
 // nearest bf16 (ties to even, as torch's cast) under mxu_bf16
 template <typename WT>
@@ -143,14 +174,18 @@ __device__ __forceinline__ float mlp_in<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// MLP over the RT activation rows in `src` (row stride wmax; the caller has
-// passed them through mlp_in).  Returns the buffer holding the [RT, 1]
-// output.  All threads of the block call it.
-template <int RT, typename WT>
-__device__ float* mlp(const Args& a, const WT* wm, const float* bm,
+__device__ __forceinline__ float leaky(float x) {
+  return x >= 0.f ? x : 0.01f * x;
+}
+
+// The sweeps' layer pass: MLP over the RT activation rows in `src` (row
+// stride wmax), f32 weights row-major [in, out] from global memory.  Returns
+// the buffer holding the [RT, 1] output.  All threads of the block call it.
+template <int RT>
+__device__ float* mlp(const Args& a, const float* wm, const float* bm,
                       float* src, float* dst, int nr) {
   const int ld = a.wmax;
-  const WT* W = wm;
+  const float* W = wm;
   const float* B = bm;
   for (int l = 0; l < a.n_layers; ++l) {
     const int din = a.sizes[l], dout = a.sizes[l + 1];
@@ -163,7 +198,7 @@ __device__ float* mlp(const Args& a, const WT* wm, const float* bm,
 #pragma unroll
         for (int r = 0; r < RT; ++r) acc[r] = 0.f;
         for (int k = lane; k < din; k += 32) {
-          const float wk = wload(W + k);
+          const float wk = __ldg(W + k);
 #pragma unroll
           for (int r = 0; r < RT; ++r) acc[r] = fmaf(src[r * ld + k], wk, acc[r]);
         }
@@ -179,7 +214,7 @@ __device__ float* mlp(const Args& a, const WT* wm, const float* bm,
           for (int r = 0; r < RT; ++r) {
             if (r < nr) {
               float x = acc[r] + bj;
-              if (!last) x = mlp_in<WT>(x >= 0.f ? x : 0.01f * x);
+              if (!last) x = leaky(x);
               dst[r * ld] = x;
             }
           }
@@ -191,7 +226,7 @@ __device__ float* mlp(const Args& a, const WT* wm, const float* bm,
 #pragma unroll
         for (int r = 0; r < RT; ++r) acc[r] = 0.f;
         for (int k = 0; k < din; ++k) {
-          const float wk = wload(W + (size_t)k * dout + j);
+          const float wk = __ldg(W + (size_t)k * dout + j);
 #pragma unroll
           for (int r = 0; r < RT; ++r) acc[r] = fmaf(src[r * ld + k], wk, acc[r]);
         }
@@ -200,7 +235,7 @@ __device__ float* mlp(const Args& a, const WT* wm, const float* bm,
         for (int r = 0; r < RT; ++r) {
           if (r < nr) {
             float x = acc[r] + bj;
-            if (!last) x = mlp_in<WT>(x >= 0.f ? x : 0.01f * x);
+            if (!last) x = leaky(x);
             dst[r * ld + j] = x;
           }
         }
@@ -216,10 +251,369 @@ __device__ float* mlp(const Args& a, const WT* wm, const float* bm,
   return src;
 }
 
+// ---------------------------------------------------------------------------
+// The population launches' layer pass (B1, B4): weights through a ring of
+// shared-memory stages by bulk copies, the product from shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 3;  // RING_STAGES in ops/fused_solve.py
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Activation row stride of the ring pass (k-major [k][RTS]): RT + 4 keeps
+// 16-byte row groups aligned and spreads the mma A-fragment loads over the
+// banks; one row needs no padding.
+template <int RT>
+__host__ __device__ constexpr int ring_rts() { return RT == 1 ? 1 : RT + 4; }
+
+// Rows per f32 thread tile: 4 columns x TR rows per thread.  Two rows keep
+// every thread of the block busy at RT >= 8 (four rows per tile measured
+// 25% slower at RT = 16: fewer independent FMA chains; PERF.md, PR 4).
+template <int RT>
+__host__ __device__ constexpr int ring_tr() {
+  return RT == 1 ? 1 : 2;
+}
+
+// Where chunk c of layer l lies: its source offset in the member's packed
+// row (elements of WT) and its bytes, one contiguous block both in global
+// and in its stage.
+//   f32:  up to kc k-rows of [in, round4(out)], row-major;
+//   bf16: the [round8(out), kcc + 8] slice of the transposed layer for
+//         k in [c kc, c kc + kcc), k zero-padded to a multiple of 16 and
+//         each row to kcc + 8 (so a warp's B-fragment loads hit distinct
+//         banks).
+struct Chunk {
+  int src, bytes;
+};
+
+template <typename WT>
+__device__ __forceinline__ Chunk chunk_at(const Args& a, int l, int c) {
+  const int din = a.sizes[l], dout = a.sizes[l + 1], kc = a.ring_kc[l];
+  Chunk ch;
+  if (sizeof(WT) == 4) {
+    const int cols = round_up(dout, 4);
+    ch.src = a.ring_off[l] + c * kc * cols;
+    ch.bytes = min(kc, din - c * kc) * cols * 4;
+  } else {
+    const int d8 = round_up(dout, 8);
+    ch.src = a.ring_off[l] + c * d8 * (kc + 8);
+    ch.bytes = d8 * (min(kc, round_up(din, 16) - c * kc) + 8) * 2;
+  }
+  return ch;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Wait until the mbarrier's phase with this parity has completed
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The ring: chunk g of the block's endless sequence (layers 0..L-1 of its
+// member, chunk by chunk, over and over) lands in stage g % kStages, by one
+// bulk copy (the TMA engine) that completes the stage's mbarrier phase
+// (g / kStages) & 1.  Chunks 0..g + kStages - 2 have been issued when chunk
+// g is acquired.
+struct Ring {
+  unsigned char* base;  // kStages stages of a.stage_bytes
+  uint64_t* bar;        // kStages mbarriers, one per stage
+  int g;                // the next chunk the product takes
+  int pl, pc;           // the next chunk to issue: layer, chunk
+  int rows;             // the block's rows the product computes (>= 1)
+};
+
+// Issue the next chunk into the stage chunk g - 1 had.  All threads call it
+// (the cursor stays uniform); thread 0 issues.
+template <typename WT>
+__device__ __forceinline__ void ring_issue(const Args& a, const WT* wm,
+                                           Ring& rg) {
+  if (threadIdx.x == 0) {
+    const Chunk ch = chunk_at<WT>(a, rg.pl, rg.pc);
+    const int stage = (rg.g + kStages - 1) % kStages;
+    const uint32_t bar = smem_addr(rg.bar + stage);
+    // the stage's last generic reads are ordered before the async write
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+        "r"(ch.bytes)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(
+            smem_addr(rg.base + stage * a.stage_bytes)),
+        "l"(wm + ch.src), "r"(ch.bytes), "r"(bar)
+        : "memory");
+  }
+  if (++rg.pc == a.ring_nch[rg.pl]) {
+    rg.pc = 0;
+    rg.pl = rg.pl + 1 == a.n_layers ? 0 : rg.pl + 1;
+  }
+}
+
+// Start the ring: set up the barriers and issue the first kStages - 1
+// chunks.  All threads call it.
+template <typename WT>
+__device__ void ring_start(const Args& a, const WT* wm, Ring& rg,
+                           unsigned char* base, uint64_t* bar) {
+  rg.base = base;
+  rg.bar = bar;
+  rg.pl = rg.pc = 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(bar + i))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int i = 0; i < kStages - 1; ++i) {
+    rg.g = i + 1 - kStages;  // so that chunk i goes to stage i
+    ring_issue<WT>(a, wm, rg);
+  }
+  rg.g = 0;
+}
+
+// Wait for chunk g, free the stage of chunk g - 1 to the copy of chunk
+// g + kStages - 1, and return chunk g's stage.  All threads call it.
+template <typename WT>
+__device__ __forceinline__ const unsigned char* ring_acquire(const Args& a,
+                                                             const WT* wm,
+                                                             Ring& rg) {
+  const int stage = rg.g % kStages;
+  bar_wait(rg.bar + stage, (rg.g / kStages) & 1);
+  __syncthreads();  // every thread is done with chunk g - 1
+  ring_issue<WT>(a, wm, rg);
+  ++rg.g;
+  return rg.base + stage * a.stage_bytes;
+}
+
+// Wait for the chunks still in flight: no copy may outlive the block
+__device__ void ring_drain(Ring& rg) {
+  for (int i = 0; i < kStages - 1; ++i) {
+    const int g = rg.g + i;
+    bar_wait(rg.bar + g % kStages, (g / kStages) & 1);
+  }
+}
+
+template <int TR>
+__device__ __forceinline__ void load_rows(const float* p, float* x) {
+  if constexpr (TR % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < TR; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      x[i] = v.x;
+      x[i + 1] = v.y;
+      x[i + 2] = v.z;
+      x[i + 3] = v.w;
+    }
+  } else if constexpr (TR == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One layer of the f32 ring pass: [RT, din] (k-major in src) x [din, dout]
+// + bias into dst.  Thread task t = tid + 256 i owns rows tr*TR.. and columns
+// cg*4..; every output's sum runs k = 0..din-1 in order.
+template <int RT>
+__device__ void ring_layer_f32(const Args& a, const float* wm, Ring& rg,
+                               int l, const float* B, const float* src,
+                               float* dst, bool last) {
+  constexpr int RTS = ring_rts<RT>(), TR = ring_tr<RT>();
+  // tiles per thread: RT / TR row groups x up to 64 column groups (the
+  // wrapper refuses layers wider than 256)
+  constexpr int NT = (RT / TR * 64 + kThreads - 1) / kThreads;
+  const int din = a.sizes[l], dout = a.sizes[l + 1];
+  const int ncg = round_up(dout, 4) / 4, kc = a.ring_kc[l];
+  int tr[NT], cg[NT];
+  bool on[NT];
+  float acc[NT][TR][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int t = threadIdx.x + i * kThreads;
+    tr[i] = t / ncg;
+    cg[i] = t - tr[i] * ncg;
+    on[i] = tr[i] * TR < rg.rows;
+#pragma unroll
+    for (int r = 0; r < TR; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][r][c] = 0.f;
+  }
+  for (int c = 0; c < a.ring_nch[l]; ++c) {
+    const float* w =
+        reinterpret_cast<const float*>(ring_acquire<float>(a, wm, rg));
+    const int k0 = c * kc, kn = min(kc, din - k0), ldw = ncg * 4;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      if (!on[i]) continue;
+      const float* xp = src + k0 * RTS + tr[i] * TR;
+      const float* wp = w + cg[i] * 4;
+#pragma unroll 8
+      for (int kk = 0; kk < kn; ++kk) {
+        const float4 wv = *reinterpret_cast<const float4*>(wp + kk * ldw);
+        float x[TR];
+        load_rows<TR>(xp + kk * RTS, x);
+#pragma unroll
+        for (int r = 0; r < TR; ++r) {
+          acc[i][r][0] = fmaf(x[r], wv.x, acc[i][r][0]);
+          acc[i][r][1] = fmaf(x[r], wv.y, acc[i][r][1]);
+          acc[i][r][2] = fmaf(x[r], wv.z, acc[i][r][2]);
+          acc[i][r][3] = fmaf(x[r], wv.w, acc[i][r][3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    if (!on[i]) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = cg[i] * 4 + c;
+      if (j >= dout) continue;
+      const float bj = __ldg(B + j);
+#pragma unroll
+      for (int r = 0; r < TR; ++r) {
+        float x = acc[i][r][c] + bj;
+        if (!last) x = leaky(x);
+        dst[j * RTS + tr[i] * TR + r] = x;
+      }
+    }
+  }
+}
+
+// One layer of the bf16 ring pass on the tensor cores: mma.sync m16n8k16,
+// A = the block's rows (MT tiles of 16; rows past RT read as 0; tiles past
+// rg.rows skipped), B = the
+// packed transposed weights.  Warp w owns the n-tiles w, w + 8, ... of every
+// row tile.  Writes the bf16-rounded inputs of the next layer, zero in the
+// k padding up to a multiple of 16.
+template <int RT>
+__device__ void ring_layer_bf16(const Args& a, const __nv_bfloat16* wm,
+                                Ring& rg, int l, const float* B,
+                                const float* src, float* dst, bool last) {
+  constexpr int RTS = ring_rts<RT>(), MT = RT > 16 ? 2 : 1;
+  const int dout = a.sizes[l + 1], kc = a.ring_kc[l];
+  const int din16 = round_up(a.sizes[l], 16), nt = round_up(dout, 8) / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[MT][4][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.f;
+  for (int c = 0; c < a.ring_nch[l]; ++c) {
+    const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(
+        ring_acquire<__nv_bfloat16>(a, wm, rg));
+    const int k0 = c * kc, kcc = min(kc, din16 - k0);
+    const int sst = kcc + 8, steps = kcc / 16;
+    for (int s = 0; s < steps; ++s) {
+      const int kb = k0 + s * 16 + 2 * t;
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m * 16 >= rg.rows) break;
+        const int r0 = m * 16 + g, r1 = r0 + 8;
+        const float* x0 = src + kb * RTS;
+        const float* x8 = src + (kb + 8) * RTS;
+        af[m][0] = bf16x2(x0[r0], x0[RTS + r0]);
+        af[m][1] = r1 < RT ? bf16x2(x0[r1], x0[RTS + r1]) : 0u;
+        af[m][2] = bf16x2(x8[r0], x8[RTS + r0]);
+        af[m][3] = r1 < RT ? bf16x2(x8[r1], x8[RTS + r1]) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = warp + 8 * i;
+        if (n >= nt) continue;
+        const __nv_bfloat16* wr = w + (n * 8 + g) * sst + s * 16 + 2 * t;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wr);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wr + 8);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          if (m * 16 < rg.rows)
+            asm volatile(
+              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+              "{%0, %1, %2, %3};\n"
+              : "+f"(acc[m][i][0]), "+f"(acc[m][i][1]), "+f"(acc[m][i][2]),
+                "+f"(acc[m][i][3])
+              : "r"(af[m][0]), "r"(af[m][1]), "r"(af[m][2]), "r"(af[m][3]),
+                "r"(b0), "r"(b1));
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = warp + 8 * i;
+      if (n >= nt) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m * 16 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
+        if (r >= rg.rows || j >= dout) continue;
+        float x = acc[m][i][e] + __ldg(B + j);
+        if (!last) x = mlp_in<__nv_bfloat16>(leaky(x));
+        dst[j * RTS + r] = x;
+      }
+    }
+  const int pad = (round_up(dout, 16) - dout) * rg.rows;
+  for (int p = threadIdx.x; p < pad; p += kThreads)
+    dst[(dout + p / rg.rows) * RTS + p % rg.rows] = 0.f;
+}
+
+// The ring pass over all layers; src holds the layer-0 input (k-major, rows
+// 0..1; in bf16 zero up to 16).  Returns the buffer holding the [1, RT]
+// output.  All threads of the block call it.
+template <int RT, typename WT>
+__device__ float* mlp_ring(const Args& a, const WT* wm, const float* bm,
+                           Ring& rg, float* src, float* dst) {
+  const float* B = bm;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const bool last = l == a.n_layers - 1;
+    if constexpr (sizeof(WT) == 4)
+      ring_layer_f32<RT>(a, wm, rg, l, B, src, dst, last);
+    else
+      ring_layer_bf16<RT>(a, wm, rg, l, B, src, dst, last);
+    B += a.sizes[l + 1];
+    float* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  __syncthreads();
+  return src;
+}
+
+// A block's shared state.  The activation buffers h0, h1 hold element
+// (row r, column k) at r * ld_r + k * ld_k: row-major [RT, wmax] for mlp(),
+// k-major [round16(wmax), ring_rts] for mlp_ring().
 template <int RT>
 struct Smem {
-  float* h0;     // [RT, wmax]
-  float* h1;     // [RT, wmax]
+  float* h0;
+  float* h1;
   float* k;      // [7, RT, 2]
   float* y;      // [RT, 2]
   float* f;      // [RT, 2]
@@ -228,11 +622,14 @@ struct Smem {
   float* rprev;  // [RT]
   int* alive;    // [RT]
   int* pend;     // [RT]
+  int ld_r, ld_k;
 
-  __device__ Smem(float* base, int wmax) {
+  __device__ Smem(float* base, const Args& a, bool ring) {
+    ld_r = ring ? 1 : a.wmax;
+    ld_k = ring ? ring_rts<RT>() : 1;
     h0 = base;
-    h1 = h0 + RT * wmax;
-    k = h1 + RT * wmax;
+    h1 = h0 + act(a.wmax, ring);
+    k = h1 + act(a.wmax, ring);
     y = k + 7 * RT * 2;
     f = y + RT * 2;
     yi = f + RT * 2;
@@ -242,30 +639,45 @@ struct Smem {
     pend = alive + RT;
   }
 
-  static size_t bytes(int wmax) {
-    return sizeof(float) * ((size_t)2 * RT * wmax + 7 * RT * 2 + 3 * RT * 2 +
-                            2 * RT) + sizeof(int) * 2 * RT;
+  // floats of one activation buffer
+  __host__ __device__ static int act(int wmax, bool ring) {
+    return ring ? round_up(wmax, 16) * ring_rts<RT>() : RT * wmax;
+  }
+
+  static size_t bytes(int wmax, bool ring) {
+    return sizeof(float) * ((size_t)2 * act(wmax, ring) + 7 * RT * 2 +
+                            3 * RT * 2 + 2 * RT) + sizeof(int) * 2 * RT;
   }
 };
 
-// f(t, ysrc) for this block's lanes into kdst [RT, 2]
-template <int RT, typename WT>
+// f(t, ysrc) for this block's lanes into kdst [RT, 2], through mlp() or,
+// with RING, mlp_ring()
+template <int RT, typename WT, bool RING>
 __device__ void rhs(const Args& a, const Smem<RT>& s, const WT* wm,
-                    const float* bm, int row0, int nr, float t,
+                    const float* bm, Ring& rg, int row0, int nr, float t,
                     const float* ysrc, float* kdst) {
   const int tid = threadIdx.x;
   if (tid < nr) {
     const float v = voltage(a, row0 + tid, t);
     s.v[tid] = v;
-    s.h0[tid * a.wmax + 0] = mlp_in<WT>(__fdiv_rn(v, 100.f));
-    s.h0[tid * a.wmax + 1] = mlp_in<WT>(ysrc[tid * 2]);
+    s.h0[tid * s.ld_r] = mlp_in<WT>(__fdiv_rn(v, 100.f));
+    s.h0[tid * s.ld_r + s.ld_k] = mlp_in<WT>(ysrc[tid * 2]);
+    if (RING && sizeof(WT) == 2)  // the mma's k padding of layer 0
+      for (int c = 2; c < 16; ++c) s.h0[tid * s.ld_r + c * s.ld_k] = 0.f;
   }
   __syncthreads();
-  const float* out = mlp<RT, WT>(a, wm, bm, s.h0, s.h1, nr);
+  const float* out;
+  if constexpr (RING)
+    out = mlp_ring<RT, WT>(a, wm, bm, rg, s.h0, s.h1);
+  else
+    out = mlp<RT>(a, wm, bm, s.h0, s.h1, nr);
   if (tid < nr) {
     const float v = s.v[tid];
     const float ga = ysrc[tid * 2], gr = ysrc[tid * 2 + 1];
-    float dadt = __fdiv_rn(out[tid * a.wmax], 1000.f);
+    // a padded row (a copy of row rg.rows - 1, so its MLP input is that
+    // row's bit for bit) takes that row's output
+    const int ro = RING ? min(tid, rg.rows - 1) : tid;
+    float dadt = __fdiv_rn(out[ro * s.ld_r], 1000.f);
     if (a.has_base) {
       const float k1 = mul(a.p1, expf(mul(a.p2, v)));
       const float k2 = mul(a.p3, expf(mul(-a.p4, v)));
@@ -281,9 +693,9 @@ __device__ void rhs(const Args& a, const Smem<RT>& s, const WT* wm,
 
 // One DP5 attempt of this block's lanes from (t, s.y) with first stage s.f
 // and step h_eff: the 7 stages into s.k.  All threads call it.
-template <int RT, typename WT>
+template <int RT, typename WT, bool RING>
 __device__ void attempt(const Args& a, const Smem<RT>& s, const WT* wm,
-                        const float* bm, int row0, int nr, float t,
+                        const float* bm, Ring& rg, int row0, int nr, float t,
                         float h_eff) {
   const int tid = threadIdx.x;
   if (tid < nr) {
@@ -303,8 +715,8 @@ __device__ void attempt(const Args& a, const Smem<RT>& s, const WT* wm,
       }
     }
     __syncthreads();
-    rhs<RT, WT>(a, s, wm, bm, row0, nr, add(t, mul(kC[si], h_eff)), s.yi,
-                s.k + si * RT * 2);
+    rhs<RT, WT, RING>(a, s, wm, bm, rg, row0, nr,
+                      add(t, mul(kC[si], h_eff)), s.yi, s.k + si * RT * 2);
   }
 }
 
@@ -399,13 +811,17 @@ __device__ __forceinline__ void block_stats(float m, int c, float* lmax,
   }
 }
 
-template <int RT, typename WT>
+// RING picks the layer pass: mlp_ring() (B1, B4; its stages lead the
+// dynamic shared memory) or mlp() (B2, f32 only)
+template <int RT, typename WT, bool RING>
 __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
+  extern __shared__ __align__(128) unsigned char dyn[];
   __shared__ float red_m;
   __shared__ int red_c;
-  const Smem<RT> s(smem, a.wmax);
+  __shared__ uint64_t ring_bar[kStages];
+  const int ring_bytes = RING ? kStages * a.stage_bytes : 0;
+  const Smem<RT> s(reinterpret_cast<float*>(dyn + ring_bytes), a, RING);
 
   const int tid = threadIdx.x;
   const int member = blockIdx.x / a.tiles;
@@ -417,6 +833,9 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
   const size_t pq2 = (size_t)a.p * a.q * 2;
   const size_t lane_off = ((size_t)member * a.q + row0 + tid) * 2;
   int seq = 0;
+  Ring rg{};
+  rg.rows = max(1, min(nr, a.q_real - row0));
+  if (RING) ring_start<WT>(a, wm, rg, dyn, ring_bar);
 
   // ---- initial state: dead lanes (non-finite y0 or f0) reset to rest ----
   if (lane) {
@@ -424,7 +843,7 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
     s.y[tid * 2 + 1] = a.y0[lane_off + 1];
   }
   __syncthreads();
-  rhs<RT, WT>(a, s, wm, bm, row0, nr, a.t0, s.y, s.f);
+  rhs<RT, WT, RING>(a, s, wm, bm, rg, row0, nr, a.t0, s.y, s.f);
   bool alive_l = false;
   if (lane) {
     alive_l = finite(s.y[tid * 2]) && finite(s.y[tid * 2 + 1]) &&
@@ -451,7 +870,7 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
     for (int j = 0; j < a.block; ++j) {
       const size_t i = (size_t)blk * a.block + j;
       const float h_eff = fmaxf(fminf(h, sub(a.t_end, t)), 1e-8f);
-      attempt<RT, WT>(a, s, wm, bm, row0, nr, t, h_eff);
+      attempt<RT, WT, RING>(a, s, wm, bm, rg, row0, nr, t, h_eff);
 
       float r = 0.f, rc = 0.f, y1[2] = {0.f, 0.f};
       bool bad = false;
@@ -521,6 +940,8 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
     a.n_out[0] = t >= a.t_end ? n_acc : -max(n_acc, 1);
     a.n_out[1] = blk * a.block;
   }
+  // the ring runs kStages - 1 chunks ahead: let no copy outlive the block
+  if (RING) ring_drain(rg);
 }
 
 // ---------------------------------------------------------------------------
@@ -549,10 +970,11 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
 template <int RT>
 __global__ void __launch_bounds__(kThreads, 1) while_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
+  extern __shared__ __align__(128) unsigned char dyn[];
   __shared__ float red_m;
   __shared__ int red_c;
-  const Smem<RT> s(smem, a.wmax);
+  const Smem<RT> s(reinterpret_cast<float*>(dyn), a, false);
+  Ring rg{};  // unused: the while sweep keeps mlp()
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * a.rt;
@@ -568,14 +990,14 @@ __global__ void __launch_bounds__(kThreads, 1) while_kernel(Args a) {
     s.y[tid * 2 + 1] = 1.f;
   }
   __syncthreads();
-  rhs<RT, float>(a, s, wm, a.b, row0, nr, a.t0, s.y, s.f);
+  rhs<RT, float, false>(a, s, wm, a.b, rg, row0, nr, a.t0, s.y, s.f);
 
   float t = a.t0, h = a.h0, lmax = 0.f, gmax;
   int n_acc = 0, n_step = 0, lcnt = 0, gcnt;
   bool go = true;
   while (go) {
     const float h_eff = nanmax(fminf(h, sub(a.t_end, t)), 1e-8f);
-    attempt<RT, float>(a, s, wm, a.b, row0, nr, t, h_eff);
+    attempt<RT, float, false>(a, s, wm, a.b, rg, row0, nr, t, h_eff);
     float r = 0.f, y1[2] = {0.f, 0.f};
     bool fin = true;
     if (lane) {
@@ -642,19 +1064,23 @@ cudaError_t launch_coop(Kern kern, Args& a, int grid, size_t smem,
                                      args, smem, stream);
 }
 
-template <int RT>
+template <int RT, bool RING>
 cudaError_t launch_trip(Args& a, bool bf16, cudaStream_t stream) {
-  const size_t smem = Smem<RT>::bytes(a.wmax);
+  const size_t smem = Smem<RT>::bytes(a.wmax, RING) +
+                      (RING ? (size_t)kStages * a.stage_bytes : 0);
   const int grid = a.p * a.tiles;
-  return bf16 ? launch_coop(trip_kernel<RT, __nv_bfloat16>, a, grid, smem,
-                            stream)
-              : launch_coop(trip_kernel<RT, float>, a, grid, smem, stream);
+  if (!bf16) return launch_coop(trip_kernel<RT, float, RING>, a, grid, smem,
+                                stream);
+  if constexpr (RING && RT > 1)
+    return launch_coop(trip_kernel<RT, __nv_bfloat16, true>, a, grid, smem,
+                       stream);
+  return cudaErrorInvalidValue;  // bf16 runs only through the ring, RT >= 8
 }
 
 template <int RT>
 cudaError_t launch_while(Args& a, cudaStream_t stream) {
-  return launch_coop(while_kernel<RT>, a, a.tiles, Smem<RT>::bytes(a.wmax),
-                     stream);
+  return launch_coop(while_kernel<RT>, a, a.tiles,
+                     Smem<RT>::bytes(a.wmax, false), stream);
 }
 
 // The fields both entry points fill the same way; false if out of range
@@ -703,11 +1129,28 @@ extern "C" int ionflux_trip_solve(
     float* rec_k, int* n_out, uint8_t* alive_out, void* partial,
     const int* sizes, int n_layers, int p, int q, int n_pad, int rt,
     int trips, int block, int cull, int has_base, const float* scal,
-    void* stream) {
+    int ring, const int* geom, int stage_bytes, int q_real, void* stream) {
   Args a;
   if (!init_args(a, vpad, sizes, n_layers, p, q, n_pad, rt, scal) ||
       block < 1 || trips % block != 0)
     return (int)cudaErrorInvalidValue;
+  if (ring) {
+    // geom: (offset, chunk depth, chunks) per layer, from the wrapper's
+    // packing; the ring pass takes widths up to 256 and 16-byte stages
+    if (a.wmax > 256 || stage_bytes < 16 || stage_bytes % 16)
+      return (int)cudaErrorInvalidValue;
+    for (int l = 0; l < n_layers; ++l) {
+      a.ring_off[l] = geom[3 * l];
+      a.ring_kc[l] = geom[3 * l + 1];
+      a.ring_nch[l] = geom[3 * l + 2];
+      if (a.ring_kc[l] < 1 || a.ring_nch[l] < 1)
+        return (int)cudaErrorInvalidValue;
+    }
+    a.stage_bytes = stage_bytes;
+    a.q_real = q_real < 1 || q_real > q ? q : q_real;
+  } else if (bf16) {
+    return (int)cudaErrorInvalidValue;
+  }
   a.y0 = y0;
   a.w = w;
   a.b = b;
@@ -725,12 +1168,17 @@ extern "C" int ionflux_trip_solve(
   a.has_base = has_base;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (rt <= 8)
-    err = launch_trip<8>(a, bf16 != 0, s);
+  if (ring && rt == 1 && !bf16)
+    err = launch_trip<1, true>(a, false, s);
+  else if (rt <= 8)
+    err = ring ? launch_trip<8, true>(a, bf16 != 0, s)
+               : launch_trip<8, false>(a, false, s);
   else if (rt <= 16)
-    err = launch_trip<16>(a, bf16 != 0, s);
+    err = ring ? launch_trip<16, true>(a, bf16 != 0, s)
+               : launch_trip<16, false>(a, false, s);
   else
-    err = launch_trip<32>(a, bf16 != 0, s);
+    err = ring ? launch_trip<32, true>(a, bf16 != 0, s)
+               : launch_trip<32, false>(a, false, s);
   return (int)err;
 }
 

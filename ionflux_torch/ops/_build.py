@@ -101,7 +101,11 @@ _SIGNATURES = {
             _I32, _I32, _I32, _I32, _I32, _I32,  # p, q, n_pad, rt, trips,
                                                 # block
             _I32, _I32,                         # cull, has_base
-            _FLOATS, _PTR,                      # scalars, stream
+            _FLOATS,                            # scalars
+            _I32, ctypes.POINTER(ctypes.c_int), _I32,  # ring, its geometry,
+                                                # stage bytes,
+            _I32,                               # rows before the padding
+            _PTR,                               # stream
         ],
         "ionflux_while_solve": [
             _PTR, _PTR, _PTR,                   # vpad, w, b

@@ -135,6 +135,11 @@ class _Setup:
     q_split: int = 1
     bf16: bool = False    # MLP inputs rounded to bf16 per layer; the
                           # setup has rounded the weights already
+    ring: bool = False    # the kernel's layer pass: the population
+                          # launches' (weights through a shared-memory ring)
+                          # or the sweeps' (see csrc/fused_solve.cu)
+    q_real: int = 0       # rows before the popsweep's padding (0: all); the
+                          # ring pass copies the padded rows' MLP outputs
 
 
 def _gate_tuples(rgate: HHParams, base_hh: HHParams | None):
@@ -341,26 +346,118 @@ def _trip_loop_plain(rhs_all, y0, *, t0: float, t_end: float, dt_knot: float,
 # ---------------------------------------------------------------------------
 
 
-def _kernel_inputs(s: _Setup):
+RING_STAGES = 3            # the ring's stages (kStages in the kernel)
+RING_STAGE_BYTES = 65536   # one stage of the ring: at most this per chunk
+RING_MAX_WIDTH = 256       # the ring pass's widest layer
+_SMEM_BYTES = 232448       # shared memory one block may take on Hopper
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def ring_stage_cap(row_tile: int, wmax: int) -> int:
+    """The largest ring stage (bytes) that fits a block's shared memory
+    beside its activation buffers and lane state, for the kernel's row tile
+    (1, 8, 16 or 32 rows, the instantiation ``row_tile`` rows take) and
+    widest layer; as csrc/fused_solve.cu's Smem lays them out."""
+    rt = next(t for t in (1, 8, 16, 32) if row_tile <= t)
+    act = 2 * _round_up(wmax, 16) * (1 if rt == 1 else rt + 4) * 4
+    rest = 96 * rt + 2048
+    return min(RING_STAGE_BYTES,
+               (_SMEM_BYTES - act - rest) // RING_STAGES // 16 * 16)
+
+
+def ring_geometry(sizes, bf16: bool, stage_cap: int = RING_STAGE_BYTES):
+    """How ``_ring_pack`` lays out one member's layers for the ring pass:
+    per layer (offset in elements, chunk depth in k, number of chunks), the
+    member's stride in elements and the stage size in bytes.
+
+    f32: layer l is row-major [in, round4(out)], and a chunk is up to kc of
+    its k-rows.  bf16: layer l is transposed, [round8(out), round16(in)],
+    and a chunk is its [round8(out), kc] slice of k (the last one
+    narrower), each slice stored whole with every row padded by 8 zeros (so
+    the kernel's B-fragment loads from the stage hit distinct banks).  A
+    chunk is one contiguous block, copied whole into a stage; chunks are
+    balanced over k and fit a stage of ``stage_cap`` bytes."""
+    geom, off, stage = [], 0, 16
+    for d_in, d_out in zip(sizes[:-1], sizes[1:]):
+        if bf16:   # k in mma steps of 16
+            cols, depth = _round_up(d_out, 8), _round_up(d_in, 16)
+            most = (stage_cap // (2 * cols) - 8) // 16 * 16
+            step = 16
+        else:
+            cols, depth = _round_up(d_out, 4), d_in
+            most, step = stage_cap // (4 * cols), 1
+        kc = _round_up(-(-depth // -(-depth // most)), step)
+        nch = -(-depth // kc)
+        geom.append((off, kc, nch))
+        if bf16:
+            off += cols * (depth + 8 * nch)
+            stage = max(stage, cols * (kc + 8) * 2)
+        else:
+            off += depth * cols
+            stage = max(stage, kc * cols * 4)
+    return geom, off, stage
+
+
+def _ring_pack(layers, bf16: bool, stage_cap: int = RING_STAGE_BYTES):
+    """Each member's weights as one packed row for the ring pass ([P, stride]
+    f32, or bf16 when ``bf16``), zero in every padding, with
+    ``ring_geometry``'s layer geometry and stage bytes.  Every chunk starts
+    and ends on a 16-byte boundary."""
+    p = layers[0][0].shape[0]
+    sizes = [layers[0][0].shape[1]] + [w.shape[2] for w, _ in layers]
+    geom, _, stage = ring_geometry(sizes, bf16, stage_cap)
+    parts = []
+    for (w, _), (_, kc, _) in zip(layers, geom):
+        d_in, d_out = w.shape[1:]
+        if bf16:
+            wt = torch.zeros((p, _round_up(d_out, 8), _round_up(d_in, 16)),
+                             dtype=w.dtype, device=w.device)
+            wt[:, :d_out, :d_in] = w.transpose(1, 2)
+            parts += [torch.nn.functional.pad(wt[:, :, k0:k0 + kc],
+                                              (0, 8)).reshape(p, -1)
+                      for k0 in range(0, wt.shape[2], kc)]
+        else:
+            wp = torch.zeros((p, d_in, _round_up(d_out, 4)), dtype=w.dtype,
+                             device=w.device)
+            wp[:, :, :d_out] = w
+            parts.append(wp.reshape(p, -1))
+    packed = torch.cat(parts, dim=1)
+    return ((packed.to(torch.bfloat16) if bf16 else packed).contiguous(),
+            geom, stage)
+
+
+def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE):
     """What both CUDA entry points take besides the outputs: the weights as
-    one flat row per member (W0, W1, ..., row-major [in, out]; bf16 when
-    ``s.bf16``), the biases likewise in f32, the layer widths and the 16
-    scalars."""
+    one flat row per member (bf16 when ``s.bf16``): W0, W1, ... row-major
+    [in, out] for the sweeps' pass, ``_ring_pack``'s layout with ``s.ring``;
+    the ring's geometry (or None), the biases in f32, the layer widths and
+    the 16 scalars.  ``row_tile`` sizes the ring's stages."""
     if len(s.layers) > 16:
         raise ValueError("the CUDA kernel takes at most 16 layers")
     p = s.y0.shape[0]
-    wflat = torch.cat([w.reshape(p, -1) for w, _ in s.layers], dim=1)
-    if s.bf16:
-        wflat = wflat.to(torch.bfloat16)    # exact: the setup rounded them
-    bflat = torch.cat([b.reshape(p, -1) for _, b in s.layers], dim=1)
     sizes = [s.layers[0][0].shape[1]] + [w.shape[2] for w, _ in s.layers]
+    if s.ring:
+        if max(sizes) > RING_MAX_WIDTH:
+            raise ValueError(f"the population kernels take layers up to "
+                             f"{RING_MAX_WIDTH} wide, got {max(sizes)}")
+        # exact in bf16: the setup rounded the weights
+        wflat, geom, stage = _ring_pack(
+            s.layers, s.bf16, ring_stage_cap(row_tile, max(sizes)))
+        ring = ((ctypes.c_int * (3 * len(geom)))(*sum(geom, ())), stage)
+    else:
+        wflat = torch.cat([w.reshape(p, -1) for w, _ in s.layers], dim=1)
+        ring = None
+    bflat = torch.cat([b.reshape(p, -1) for _, b in s.layers], dim=1)
     p1, p2, p3, p4 = s.base_a if s.base_a else (0.0, 0.0, 0.0, 0.0)
     f = np.float32
     scal = (ctypes.c_float * 16)(
         f(s.t0), f(1.0 / s.dt_knot), f(s.dt_knot * 10.0), f(s.t_end),
         f(s.t_end - s.t0), f(s.rtol), f(s.atol), f(float(s.trips)),
         p1, p2, p3, p4, *s.gate)
-    return (wflat.contiguous(), bflat.contiguous(),
+    return (wflat.contiguous(), ring, bflat.contiguous(),
             (ctypes.c_int * len(sizes))(*sizes), scal)
 
 
@@ -374,8 +471,9 @@ def _trip_solve_cuda(s: _Setup):
 
     dev = s.vpad.device
     p, q = s.y0.shape[:2]
-    wflat, bflat, c_sizes, scal = _kernel_inputs(s)
     row_tile = min(MAX_ROW_TILE, q // s.q_split)
+    wflat, ring, bflat, c_sizes, scal = _kernel_inputs(s, row_tile)
+    geom, stage = ring if ring else (None, 0)
     grid = p * -(-q // row_tile)
     rec_sc = torch.empty((s.trips, 2), dtype=torch.float32, device=dev)
     rec_y = torch.empty((s.trips, p, q, 2), dtype=torch.float32, device=dev)
@@ -391,7 +489,8 @@ def _trip_solve_cuda(s: _Setup):
             rec_sc.data_ptr(), rec_y.data_ptr(), rec_k.data_ptr(),
             n_out.data_ptr(), alive.data_ptr(), partial.data_ptr(), c_sizes,
             len(s.layers), p, q, s.vpad.shape[1], row_tile, s.trips,
-            s.block, int(s.cull), int(bool(s.base_a)), scal)
+            s.block, int(s.cull), int(bool(s.base_a)), scal, int(s.ring),
+            geom, stage, s.q_real)
     return rec_sc, rec_y, rec_k, n_out, alive.bool()
 
 
@@ -623,7 +722,7 @@ def _popsweep_setup(nets, rgate, protos_v, ts, proto_t0, proto_dt, t_end,
         t_end=float(t_end) if t_end is not None else float(ts[-1]),
         rtol=float(rtol), atol=float(atol),
         trips=-(-int(trips) // block) * block, block=block, cull=bool(cull),
-        q_split=q_split, bf16=bool(mxu_bf16))
+        q_split=q_split, bf16=bool(mxu_bf16), ring=True, q_real=q_req)
 
 
 def _popsweep(nets, rgate, protos_v, ts, *, proto_t0, proto_dt, t_end, rtol,
@@ -714,7 +813,7 @@ def _pop_setup(nets, rgate, proto_v, ts, proto_t0, proto_dt, t_end, rtol,
         gate=gate, base_a=(), t0=float(proto_t0), dt_knot=float(proto_dt),
         t_end=float(t_end) if t_end is not None else float(ts[-1]),
         rtol=float(rtol), atol=float(atol), trips=int(trips),
-        block=SWEEP_BLOCK, cull=False)
+        block=SWEEP_BLOCK, cull=False, ring=True)
 
 
 def _pop(nets, rgate, proto_v, ts, *, proto_t0, proto_dt, t_end, rtol, atol,
@@ -840,7 +939,7 @@ def _while_solve_cuda(s: _Setup, max_steps: int):
 
     dev = s.vpad.device
     b = s.y0.shape[1]
-    wflat, bflat, c_sizes, scal = _kernel_inputs(s)
+    wflat, _, bflat, c_sizes, scal = _kernel_inputs(s)
     row_tile = min(MAX_ROW_TILE, b)
     rec_sc = torch.empty((s.trips, 2), dtype=torch.float32, device=dev)
     rec_y = torch.empty((s.trips, 1, b, 2), dtype=torch.float32, device=dev)

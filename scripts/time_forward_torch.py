@@ -7,22 +7,31 @@ to compare two commits inside one run.
 ``--root`` names the checkout whose ``ionflux_torch`` is timed (default:
 this one); its kernels are built there at first use.  The weights, the
 protocols and chip_smoke.py's helpers come from this checkout.  The shapes
-are chip_smoke.py's phases (b), (c) and (k): the trained d1 sweep over the
-activation family (B = 7, 80,001 knots, rtol 1e-6), 64 perturbed d1
-members over the deactivation family (9 rows padded to 16, 100,001 knots)
-and the same members on the +20 mV activation protocol, 4096 trips each.
+are chip_smoke.py's phases (b), (c), (k) and (m), 4096 trips each:
+
+- B2: the trained d1 sweep over the activation family (B = 7, 80,001
+  knots, rtol 1e-6);
+- B1: 64 perturbed d1 members over the deactivation family (9 rows padded
+  to 16, 100,001 knots), and the first 32 of them (the same work per block
+  on half the grid, with half the weights in the L2);
+- B1 bf16: (m)'s 64 members of the 5 x 200 ``nnf_init`` net in
+  ``mxu_bf16`` over the deactivation family;
+- B4: the 64 d1 members on the +20 mV activation protocol.
 
 Prints one JSON line: the checkout, the card's name and power limit, the
 host seconds per call of ``simulate_family`` and ``simulate_population``
 (mean of ``--reps`` calls after a warm-up, each ending in a synchronise)
-and each trip kernel's milliseconds (CUDA events, mean of ``--reps``
-launches after a warm-up).  To compare a parent with a change, run parent,
+and for each trip kernel its milliseconds (CUDA events, mean of ``--reps``
+launches after a warm-up), its executed trips (``n_valid``), the
+milliseconds per executed trip, and a SHA-256 of its executed records (equal
+hashes: identical records).  To compare a parent with a change, run parent,
 change, change, parent in one call.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -49,9 +58,11 @@ def main(root: str, reps: int) -> dict:
     C = _chip_smoke()
     from ionflux_torch import eval as E
     from ionflux_torch import protocols as P
-    from ionflux_torch.models.registry import SYNTHETIC
+    from ionflux_torch.models import nn as N
+    from ionflux_torch.models.registry import HH_B06, SYNTHETIC
     from ionflux_torch.ops import fused_solve as F
-    from ionflux_torch.utils.ckpt import load_pytree, params_from_leaves
+    from ionflux_torch.utils.ckpt import (load_pytree, params_from_leaves,
+                                         params_to_leaves)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -59,6 +70,11 @@ def main(root: str, reps: int) -> dict:
     d1 = load_pytree(d1_path, "nnf", device=dev)
     pop = params_from_leaves(C.population(C.npz_leaves(d1_path), C.P_POP, 0),
                              "nnf", dev)
+    pop32 = [(w[:32], b[:32]) for w, b in pop.net.layers]
+    wide = N.nnf_init(torch.Generator().manual_seed(0), HH_B06, 5, 200,
+                      device=dev)
+    popw = params_from_leaves(
+        C.population(params_to_leaves(wide), C.P_POP, 0), "nnf", dev)
     act = P.activation_family(0.1, device=dev)
     deact = P.deactivation_family(0.1, device=dev)
     act20 = P.activation_protocol(20.0, 0.1, device=dev)
@@ -80,20 +96,33 @@ def main(root: str, reps: int) -> dict:
             torch.cuda.synchronize()
         host[name] = (time.perf_counter() - t) / reps
 
+    def popsweep(nets, rgate, bf16):
+        return F._popsweep_setup(nets, rgate, b_d.v, ts_d, 0.0, 0.1,
+                                 float(ts_d[-1]), 1e-5, 1e-7, C.TRIPS, None,
+                                 None, True, bf16, 1)
+
     setups = {
         "B2 sweep": F._sweep_setup(
             d1.net, d1.rgate, b_a.v, ts_a, 0.0, 0.1, float(ts_a[-1]), 1e-6,
             1e-8, C.TRIPS, None),
-        "B1 popsweep": F._popsweep_setup(
-            pop.net, pop.rgate, b_d.v, ts_d, 0.0, 0.1, float(ts_d[-1]), 1e-5,
-            1e-7, C.TRIPS, None, None, True, False, 1),
+        "B1 popsweep": popsweep(pop.net, pop.rgate, False),
+        "B1 popsweep P=32": popsweep(pop32, pop.rgate, False),
+        "B1 popsweep bf16 (m)": popsweep(popw.net, popw.rgate, True),
         "B4 population": F._pop_setup(
             pop.net.layers, pop.rgate, act20.v, ts_20, 0.0, 0.1,
             float(ts_20[-1]), 1e-5, 1e-7, C.TRIPS)}
-    kernel = {name: C.cuda_ms(lambda s=s: F._trip_solve_cuda(s), reps)[0]
-              for name, s in setups.items()}
+    kernel = {}
+    for name, s in setups.items():
+        ms, out = C.cuda_ms(lambda s=s: F._trip_solve_cuda(s), reps)
+        n_valid = int(out[3][1])
+        digest = hashlib.sha256()
+        for rec in out[:3]:
+            digest.update(rec[:n_valid].cpu().numpy().tobytes())
+        kernel[name] = {"ms": ms, "n_acc": int(out[3][0]),
+                        "n_valid": n_valid, "ms_per_trip": ms / n_valid,
+                        "records_sha256": digest.hexdigest()[:16]}
     out = {"root": os.path.abspath(root), "card": C.device_line(),
-           "host_s": host, "kernel_ms": kernel}
+           "host_s": host, "kernels": kernel}
     print(json.dumps(out), flush=True)
     return out
 

@@ -60,7 +60,7 @@ def test_port_imports_neither_jax_nor_ionflux():
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
         "import train_d0_torch, probe_mosaic_bias_fault_torch\n"
-        "import time_forward_torch\n"
+        "import time_forward_torch, probe_ring_pass_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ionflux'))\n"
         "assert not bad, bad\n"
@@ -331,9 +331,12 @@ def test_hh_rk4_kernel_matches_plain_on_card(card):
 
 
 @pytest.mark.cuda
-def test_nnf_pop_kernel_matches_plain_on_card(card):
-    """The trip kernel at Q = 1: one protocol row in a tile of 8."""
-    nets = _net(members=5, sizes=(2, 64, 64, 1), device=card)
+@pytest.mark.parametrize("p,sizes", [(5, (2, 64, 64, 1)),
+                                     (64, (2, 250, 250, 1))])
+def test_nnf_pop_kernel_matches_plain_on_card(card, p, sizes):
+    """The trip kernel at Q = 1: the ring pass at one row; 250 does not
+    divide its chunk depth."""
+    nets = _net(seed=p, members=p, sizes=sizes, device=card)
     v = TP.activation_protocol(20.0, 1.0, device=card).v
     ts = torch.arange(50.0, 8000.0, 100.0, device=card)
     kw = dict(proto_dt=1.0, trips=2048)
@@ -343,7 +346,7 @@ def test_nnf_pop_kernel_matches_plain_on_card(card):
     assert TK.fused_nnf_pop_solve_ft.launches == before + 1
     ys_p = TK.fused_nnf_pop_solve_ft_plain(nets, TR.HH_B06, v, ts, **kw)
     assert TK.fused_nnf_pop_solve_ft.launches == before + 1
-    assert tuple(ys_k.shape) == (5, 80, 2)
+    assert tuple(ys_k.shape) == (p, 80, 2)
     assert bool(torch.isfinite(ys_k).all())
     _close_on_card(ys_k, ys_p)
 
@@ -383,3 +386,97 @@ def test_bias_probe_kernel_matches_plain_on_card(card):
         out_p = TB.bias_probe_plain(w, b, fold=fold)
         assert tuple(out_k.shape) == (64, 128)
         assert float((out_k - out_p).abs().max()) <= 1e-5
+
+
+# The population launches' layer pass (the ring of weight chunks; mma.sync in
+# bf16): shapes across the row tiles RT = 1, 8, 16, 32, grids of 1 to 128
+# blocks and widths whose k-depth does not divide the chunk.
+
+
+def _levels(q):
+    return tuple(float(x) for x in np.linspace(-60.0, 40.0, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,q,sizes,mode", [
+    (1, 1, (2, 64, 64, 1), "f32"),
+    (5, 3, (2, 64, 64, 1), "f32"),
+    (5, 9, (2, 64, 64, 1), "f32"),
+    (128, 32, (2, 64, 64, 1), "f32"),
+    (128, 9, (2, 16, 16, 1), "f32"),
+    (5, 3, (2, 250, 250, 1), "f32"),
+    (5, 32, (2, 37, 130, 1), "f32"),
+    (4, 7, (2, 64, 64, 1), "nnd"),
+    (5, 4, (2, 64, 64, 1), "bf16"),
+    (5, 9, (2, 250, 250, 1), "bf16"),
+    (128, 32, (2, 64, 64, 1), "bf16"),
+])
+def test_popsweep_ring_pass_matches_plain_on_card(card, p, q, sizes, mode):
+    """The popsweep kernel against its plain version across P, Q, widths
+    (250 does not divide its chunk depth in either mode), NN-d and bf16;
+    lane (0, q - 1) starts dead and stays inf (where it is not the only
+    lane)."""
+    nets = _net(seed=p + q, members=p, sizes=sizes, device=card)
+    v = _protos(_levels(q), device=card)
+    ts = torch.arange(50.0, 8000.0, 100.0, device=card)
+    y0 = torch.zeros(p, q, 2, device=card)
+    y0[..., 1] = 1.0
+    if p * q > 1:
+        y0[0, q - 1] = float("nan")
+    kw = dict(proto_dt=1.0, trips=2048, y0=y0, mxu_bf16=mode == "bf16",
+              base_hh=TR.HH_B06 if mode == "nnd" else None)
+    before = TK.fused_nnf_popsweep_solve_ft.launches
+    ys_k = TK.fused_nnf_popsweep_solve_ft(nets, TR.HH_B06, v, ts, **kw)
+    torch.cuda.synchronize()
+    assert TK.fused_nnf_popsweep_solve_ft.launches == before + 1
+    ys_p = TK.fused_nnf_popsweep_solve_ft_plain(nets, TR.HH_B06, v, ts, **kw)
+    assert tuple(ys_k.shape) == (p, q, ts.shape[0], 2)
+    assert bool(torch.isinf(ys_k[0, q - 1]).all()) == (p * q > 1)
+    assert bool(torch.isfinite(ys_p[0, :q - 1]).all())
+    _close_on_card(ys_k, ys_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,mode", [(16, "f32"), (32, "f32"), (32, "bf16")])
+def test_popsweep_ring_pass_q_split_is_bit_identical_on_card(card, q, mode):
+    """q_split = 2 halves the row tile (RT 16 -> 8, 32 -> 16): every row's
+    sums run in the same order, so the records are bit-identical."""
+    nets = _net(seed=3, members=3, sizes=(2, 250, 250, 1), device=card)
+    v = _protos(_levels(q), device=card)
+    kw = dict(proto_dt=1.0, trips=2048, return_records=True,
+              mxu_bf16=mode == "bf16")
+    ts = torch.tensor([0.0, 8000.0], device=card)
+    r1 = TK.fused_nnf_popsweep_solve_ft(nets, TR.HH_B06, v, ts, **kw)
+    r2 = TK.fused_nnf_popsweep_solve_ft(nets, TR.HH_B06, v, ts, q_split=2,
+                                        **kw)
+    n = int(r1.n_valid)
+    assert n == int(r2.n_valid) and int(r1.n_acc) == int(r2.n_acc) > 0
+    for a, b in ((r1.rec_sc, r2.rec_sc), (r1.rec_y, r2.rec_y),
+                 (r1.rec_k, r2.rec_k)):
+        assert torch.equal(a[:n], b[:n])
+    assert torch.equal(r1.mask, r2.mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,mode", [(9, "f32"), (5, "f32"), (17, "f32"),
+                                    (9, "bf16"), (17, "bf16")])
+def test_ring_pass_copies_padded_rows_bit_for_bit_on_card(card, q, mode):
+    """The popsweep pads Q to a power of two with copies of the last row;
+    the ring pass computes only the real rows (q_real) and hands a padded
+    row its copy's MLP output.  The records equal those of a launch that
+    computes every row, bit for bit."""
+    import dataclasses
+
+    nets = _net(seed=q, members=3, sizes=(2, 250, 250, 1), device=card)
+    v = _protos(_levels(q), device=card)
+    ts = torch.tensor([0.0, 8000.0], device=card)
+    s = TK._popsweep_setup(nets, TR.HH_B06, v, ts, 0.0, 1.0, None, 1e-5,
+                           1e-7, 2048, None, None, True, mode == "bf16", 1)
+    assert s.q_real == q and s.y0.shape[1] > q
+    real = TK._trip_solve_cuda(s)
+    every = TK._trip_solve_cuda(dataclasses.replace(s, q_real=0))
+    n = int(real[3][1])
+    assert torch.equal(real[3], every[3]) and int(real[3][0]) > 0
+    for a, b in zip(real[:3], every[:3]):
+        assert torch.equal(a[:n], b[:n])
+    assert torch.equal(real[4], every[4])

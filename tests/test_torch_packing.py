@@ -1,0 +1,219 @@
+"""The weight packing of the population kernels' layer pass
+(ops/fused_solve.py::_ring_pack, ring_geometry): what the CUDA ring copies
+to shared memory, chunk by chunk, read back here the way
+csrc/fused_solve.cu::chunk_at reads it.  Pure PyTorch on the CPU.
+
+For the d1 widths, the tests' (2, 64, 64, 1) and (2, 16, 16, 1) nets and
+odd widths, in f32 and bf16: unpacking gives back the layers exactly (bf16:
+``_bf16_round`` of them, transposed back), every chunk the kernel copies
+starts and ends on a 16-byte boundary, and everything else in the packed
+row is zero.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ionflux_torch.models import registry as TR
+from ionflux_torch.ops import fused_solve as TK
+
+D1 = (2, 200, 200, 200, 200, 200, 200, 1)
+WIDTHS = [D1, (2, 64, 64, 1), (2, 16, 16, 1), (2, 37, 130, 1),
+          (2, 250, 250, 1)]
+
+
+def _layers(sizes, members=3, seed=0):
+    rs = np.random.RandomState(seed)
+    return [(torch.from_numpy(rs.randn(members, a, b).astype(np.float32)),
+             torch.from_numpy(rs.randn(members, b).astype(np.float32)))
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _chunks(sizes, bf16, cap=TK.RING_STAGE_BYTES):
+    """Every chunk as the kernel copies it into a stage, one contiguous
+    block: (layer, chunk, source offset in elements, rows, elements per
+    row), following chunk_at in csrc/fused_solve.cu.  A bf16 row holds the
+    chunk's kcc values of k and 8 of padding."""
+    geom, _, _ = TK.ring_geometry(list(sizes), bf16, cap)
+    for l, (off, kc, nch) in enumerate(geom):
+        d_in, d_out = sizes[l], sizes[l + 1]
+        for c in range(nch):
+            if bf16:
+                d8 = _round_up(d_out, 8)
+                kcc = min(kc, _round_up(d_in, 16) - c * kc)
+                yield (l, c, off + c * d8 * (kc + 8), d8, kcc + 8)
+            else:
+                cols = _round_up(d_out, 4)
+                yield (l, c, off + c * kc * cols, min(kc, d_in - c * kc),
+                       cols)
+
+
+def _unpack(packed, sizes, bf16):
+    """The layers [P, in, out] (f32) back from a packed row, and a mask of
+    the packed elements they came from."""
+    geom, _, _ = TK.ring_geometry(list(sizes), bf16)
+    p = packed.shape[0]
+    flat = packed.float()
+    used = torch.zeros(packed.shape[1], dtype=torch.bool)
+    out = [torch.full((p, a, b), float("nan"))
+           for a, b in zip(sizes[:-1], sizes[1:])]
+    for l, c, src, rows, row_elems in _chunks(sizes, bf16):
+        d_in, d_out = sizes[l], sizes[l + 1]
+        kc = geom[l][1]
+        block = flat[:, src:src + rows * row_elems].reshape(p, rows,
+                                                            row_elems)
+        if bf16:        # [out8, k] slice of the transposed layer
+            k0 = c * kc
+            kn = max(0, min(row_elems - 8, d_in - k0))
+            out[l][:, k0:k0 + kn, :] = block[:, :d_out, :kn].transpose(1, 2)
+            idx = (src + torch.arange(d_out)[:, None] * row_elems
+                   + torch.arange(kn)[None, :])
+        else:           # k-rows of [in, out4]
+            k0 = c * kc
+            out[l][:, k0:k0 + rows, :] = block[:, :, :d_out]
+            idx = (src + torch.arange(rows)[:, None] * row_elems
+                   + torch.arange(d_out)[None, :])
+        used[idx.flatten()] = True
+    return out, used
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sizes", WIDTHS, ids=lambda s: "x".join(map(str, s)))
+def test_ring_pack_unpacks_to_the_layers(sizes, bf16):
+    """Unpacked by the kernel's own chunk arithmetic, the packed row gives
+    back each layer exactly: the f32 weights, or in bf16 the weights
+    rounded as ``_bf16_round`` rounds them (the transpose moves no value)."""
+    layers = _layers(sizes)
+    packed, geom, stage = TK._ring_pack(layers, bf16)
+    assert (geom, stage) == tuple(
+        TK.ring_geometry(list(sizes), bf16)[i] for i in (0, 2))
+    stride = TK.ring_geometry(list(sizes), bf16)[1]
+    assert packed.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    assert tuple(packed.shape) == (3, stride)
+    got, _ = _unpack(packed, sizes, bf16)
+    for (w, _), wg in zip(layers, got):
+        want = TK._bf16_round(w) if bf16 else w
+        assert torch.equal(wg, want)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sizes", WIDTHS, ids=lambda s: "x".join(map(str, s)))
+def test_ring_chunks_are_16_byte_aligned_and_fit_a_stage(sizes, bf16):
+    """A bulk copy moves a multiple of 16 bytes between 16-byte aligned
+    addresses: every chunk's source (for any member) and size are 16-byte
+    multiples, the chunks of a layer tile its block end to end, and each
+    chunk fits the stage the kernel sizes from ring_geometry."""
+    esize = 2 if bf16 else 4
+    geom, stride, stage = TK.ring_geometry(list(sizes), bf16)
+    assert (stride * esize) % 16 == 0
+    assert stage % 16 == 0 and stage <= TK.RING_STAGE_BYTES
+    n_chunks, end = 0, 0
+    for l, c, src, rows, row_elems in _chunks(sizes, bf16):
+        assert src == (geom[l][0] if c == 0 else end), (l, c)
+        end = src + rows * row_elems
+        assert (src * esize) % 16 == 0, (l, c)
+        assert (rows * row_elems * esize) % 16 == 0, (l, c)
+        assert rows >= 1 and rows * row_elems * esize <= stage, (l, c)
+        if bf16:
+            assert (row_elems - 8) % 16 == 0    # whole mma k-steps
+            # the B-fragment rows of a warp start in distinct bank groups
+            words = row_elems // 2
+            assert len({(g * words) % 32 for g in range(8)}) == 8
+        n_chunks += 1
+    assert end == stride
+    assert n_chunks == sum(n for _, _, n in geom)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sizes", WIDTHS, ids=lambda s: "x".join(map(str, s)))
+def test_ring_padding_is_zero(sizes, bf16):
+    """Every element of the packed row that is no weight is zero (a zero
+    weight adds nothing to an f32 sum), and the chunks cover the row."""
+    layers = _layers(sizes)
+    packed, _, _ = TK._ring_pack(layers, bf16)
+    _, used = _unpack(packed, sizes, bf16)
+    pad = packed.float()[:, ~used]
+    assert int(used.sum()) == sum(a * b for a, b in zip(sizes[:-1],
+                                                       sizes[1:]))
+    assert bool((pad == 0).all())
+
+
+@pytest.mark.parametrize("sizes", [D1, (2, 250, 250, 1)],
+                         ids=["d1", "2x250x250x1"])
+def test_ring_chunks_are_balanced(sizes):
+    """Chunks of one layer differ by at most one k-row (f32) or one mma
+    k-step (bf16), so no chunk is a sliver; the 250-wide layer does not
+    divide its chunk depth, the case the card test exercises."""
+    for bf16, step in ((False, 1), (True, 16)):
+        geom, _, _ = TK.ring_geometry(list(sizes), bf16)
+        for l, (_, kc, nch) in enumerate(geom):
+            depth = _round_up(sizes[l], 16) if bf16 else sizes[l]
+            last = depth - (nch - 1) * kc
+            assert 0 < last <= kc and kc - last < nch * step
+    geom, _, _ = TK.ring_geometry(list(sizes), False)
+    if sizes[1] == 250:
+        assert sizes[1] % geom[1][1] != 0
+
+
+def _setup(entry, sizes, members=2, q=3):
+    layers = _layers(sizes, members)
+    v = torch.zeros((q, 2000), dtype=torch.float32)
+    ts = torch.tensor([0.0, 100.0])
+    if entry == "sweep":
+        return TK._sweep_setup([(w[0], b[0]) for w, b in layers], TR.HH_B06,
+                               v, ts, 0.0, 1.0, None, 1e-5, 1e-7, 256, None)
+    if entry == "population":
+        return TK._pop_setup(layers, TR.HH_B06, v[0], ts, 0.0, 1.0, None,
+                             1e-5, 1e-7, 256)
+    return TK._popsweep_setup(layers, TR.HH_B06, v, ts, 0.0, 1.0, None, 1e-5,
+                              1e-7, 256, None, None, True, entry == "bf16",
+                              1)
+
+
+@pytest.mark.parametrize("entry,ring", [("sweep", False),
+                                        ("population", True),
+                                        ("popsweep", True), ("bf16", True)])
+def test_entry_point_picks_the_layer_pass(entry, ring):
+    """The popsweep (f32 and bf16) and the population solve take the ring
+    pass, the sweep keeps its own, whatever P is; the kernel inputs follow."""
+    s = _setup(entry, (2, 16, 16, 1))
+    assert s.ring is ring
+    wflat, geom, _, sizes, _ = TK._kernel_inputs(s)
+    assert list(sizes) == [2, 16, 16, 1]
+    if ring:
+        packed, _, _ = TK._ring_pack(s.layers, s.bf16)
+        assert torch.equal(wflat, packed) and geom is not None
+    else:
+        assert geom is None and wflat.shape[1] == 2 * 16 + 16 * 16 + 16
+
+
+def test_ring_pass_refuses_wider_layers():
+    s = _setup("popsweep", (2, 300, 1))
+    with pytest.raises(ValueError, match="256"):
+        TK._kernel_inputs(s)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("row_tile", [1, 8, 16, 32])
+@pytest.mark.parametrize("sizes", [D1, (2, 250, 250, 1), (2, 16, 16, 1)],
+                         ids=["d1", "2x250x250x1", "2x16x16x1"])
+def test_ring_stages_fit_shared_memory(sizes, row_tile, bf16):
+    """The wrapper caps a stage so that the ring's stages, the two
+    activation buffers (k-major, [round16(width), RT + 4] f32) and the lane
+    state of the kernel's Smem fit the 227 KB a block may take; the chunks
+    of the capped geometry fit their stage."""
+    cap = TK.ring_stage_cap(row_tile, max(sizes))
+    _, _, stage = TK.ring_geometry(list(sizes), bf16, cap)
+    rt = next(t for t in (1, 8, 16, 32) if row_tile <= t)
+    act = _round_up(max(sizes), 16) * (1 if rt == 1 else rt + 4)
+    smem = (TK.RING_STAGES * stage + 4 * (2 * act + 7 * rt * 2
+                                          + 3 * rt * 2 + 2 * rt)
+            + 4 * 2 * rt)
+    assert stage <= cap <= TK.RING_STAGE_BYTES
+    assert smem <= 232448 - 1024
+    for *_, rows, row_elems in _chunks(sizes, bf16, cap):
+        assert rows * row_elems * (2 if bf16 else 4) <= stage
