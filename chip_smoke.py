@@ -16,11 +16,17 @@ The forward-simulation path: the trained 200-wide, 7-layer NN-f
       ``simulate_family(backend="pallas")`` on the activation family (B = 7,
       80,001 knots), ``simulate_population`` of 64 perturbed d1 members on
       the deactivation family (9 rows padded to 16, 100,001 knots) and of 4
-      perturbed d2 members (NN-d) on the activation family; counters are read
-      just after;
+      perturbed d2 members (NN-d) on the activation family;
+  (b') ``fused_nnf_solve_ft`` at B = 40 (two clusters) on 1 s of activation
+      steps at 0.1 ms knots, 512 trips, for d1 and for a 5 x 512
+      ``nnf_init`` net (too large for a cluster: the mlp() pass);
+      counters are read just after, and each sweep launch's layer pass
+      (cluster size, clusters) is printed;
   then each kernel against its plain version (max |dy| on the gates <= 5e-3,
   no inf where the plain version is finite), the sweep against ``odeint``,
-  and the kernel and plain times with CUDA events after a warm-up.
+  the sweep's records through the cluster pass against mlp()'s and against
+  clusters of 16 (bit for bit; also at (b')), and the kernel and plain
+  times with CUDA events after a warm-up.
 
 The d0 fit (``scripts/train_d0_torch.py``), counters again set to 0 just
 before it and read just after:
@@ -53,7 +59,8 @@ after:
       deactivation family, 9 rows padded to 16, so the biases are rounded
       to bf16 too);
   (n) ``scripts/probe_mosaic_bias_fault_torch.py`` in both cases;
-  then (l) kernel vs plain (5e-3 on the gates), its records against the
+  then (l) kernel vs plain (5e-3 on the gates), its records through the
+  cluster pass against mlp()'s (bit for bit), its records against the
   sweep kernel's accepted trips of (b) (printed, expected identical), its
   gates against (b)'s within 5e-3 and its currents against (b)'s odeint
   within 5e-3; (l') against odeint within 2e-2; (m) kernel vs plain
@@ -64,9 +71,13 @@ after:
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
-The rows of the three launches that take the ring layer pass (the popsweep
-in f32 and in bf16, the population solve) also carry their executed trips
-(``n_valid``), the milliseconds per executed trip and the pass's design.
+Every row of the kernel table names its layer pass (``layer_pass``).  The
+rows of the three launches that take the ring layer pass (the popsweep in
+f32 and in bf16, the population solve) also carry their executed trips
+(``n_valid``), the milliseconds per executed trip and the pass's design;
+the two sweeps' rows (the cluster pass) their executed trips or steps, the
+milliseconds per trip or step, the cluster size and count and the mlp()
+pass's time on the same inputs (B2 also at clusters of 16 and at (b')).
 
 Any failing phase raises, so the script exits non-zero and prints no result.
 Without a CUDA device it exits with code 2.
@@ -74,6 +85,7 @@ Without a CUDA device it exits with code 2.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -103,6 +115,8 @@ RK4_WINDOW = 10000    # knots of Pr3 sweep 0 on which the plain RK4 runs
 P_POP, P_NND = 64, 4
 WHILE = dict(rtol=1e-6, atol=1e-8, max_rec=16384, max_steps=100_000)
 WHILE_ODE_TOL = 2e-2  # (l'): the while sweep vs odeint (tests/test_pallas_tpu.py)
+B40, B40_TRIPS = 40, 512   # (b'): B2 on two clusters, 1 s of protocol
+B40_TOL = dict(rtol=1e-6, atol=1e-8)
 BF16_DEV = 0.02       # (m): bf16 vs f32 currents, of their range, at the
                       # shape of tests/test_pallas.py::
                       # test_popsweep_mxu_bf16_storage (3 nets of 1 x 16)
@@ -129,10 +143,10 @@ def device_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int):
-    """Mean milliseconds of fn() over reps launches after one warm-up, with
-    CUDA events; returns (ms, last result)."""
-    out = fn()
+def cuda_ms(fn, reps: int, warm: bool = True):
+    """Mean milliseconds of fn() over reps launches after one warm-up (none
+    with ``warm=False``), with CUDA events; returns (ms, last result)."""
+    out = fn() if warm else None
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -224,13 +238,39 @@ def trip_bound(n_valid: int, lanes: int, rhs_ops: int, in_bytes: int,
 # bulk asynchronous copies (TMA, one mbarrier per stage), multiplied from
 # shared memory (mma.sync in bf16); csrc/fused_solve.cu says more.
 RING_DESIGN = "pr4-bulk-copy-ring-3x64KB+mma.sync-bf16"
+NO_PASS = "none (no MLP)"   # the HH kernels' and the probe's rows
 
 
 def ring_fields(n_valid: int, ms: float) -> dict:
     """The extra kernel-row fields of a launch through the ring pass: its
     executed trips, the milliseconds per executed trip and the design."""
     return dict(n_valid=n_valid, ms_per_trip=ms / n_valid,
-                design=RING_DESIGN)
+                design=RING_DESIGN, layer_pass="ring")
+
+
+def pass_text(info: dict) -> str:
+    """A sweep launch's layer pass as chip_smoke prints it."""
+    if info["layer_pass"] == "cluster":
+        return (f"cluster pass, {info['cluster_size']} blocks per cluster, "
+                f"{info['clusters']} cluster(s)")
+    return "mlp() pass (weights from L2)"
+
+
+def same_records(out_a, out_b, n: int) -> bool:
+    """Whether two trip or while launches wrote the same first n records,
+    bit for bit (NaN included), and the same n_out."""
+    return bool(torch.equal(out_a[3], out_b[3])) and all(
+        bool(torch.equal(a[:n].view(torch.int32), b[:n].view(torch.int32)))
+        for a, b in zip(out_a[:3], out_b[:3]))
+
+
+# What a cluster-pass launch's row adds: its pass and geometry, executed
+# trips (steps for B6), ms per trip, and the mlp() pass's time on the same
+# inputs, whose records it must equal bit for bit (csrc/fused_solve.cu).
+def cluster_fields(info: dict, n: int, ms: float, ms_mlp: float) -> dict:
+    return dict(layer_pass=info["layer_pass"],
+                cluster_size=info["cluster_size"], clusters=info["clusters"],
+                n_valid=n, ms_per_trip=ms / n, mlp_ms=ms_mlp)
 
 
 def check_counts(what: str, launches: dict) -> None:
@@ -275,7 +315,8 @@ def forward_path(dev, rows) -> dict:
     from ionflux_torch import eval as E
     from ionflux_torch import protocols as P
     from ionflux_torch.entry import entry
-    from ionflux_torch.models.registry import SYNTHETIC
+    from ionflux_torch.models import nn as N
+    from ionflux_torch.models.registry import HH_B06, SYNTHETIC
     from ionflux_torch.ops import fused_solve as F
     from ionflux_torch.utils.ckpt import load_pytree, params_from_leaves
 
@@ -304,6 +345,15 @@ def forward_path(dev, rows) -> dict:
     ts_act, ts_deact = act[0].times(), deact[0].times()
     log(f"protocols: activation {len(act)} x {act[0].n} knots, deactivation "
         f"{len(deact)} x {deact[0].n} knots")
+    # (b'): B2 at B = 40 (two clusters) on 1 s of activation steps at 0.1
+    # ms knots (-80 mV, then from 100 ms a step to -60..+60 mV), d1 and a
+    # 5 x 512 nnf_init net (5.2 MB of weights: the mlp() pass)
+    v40 = torch.full((B40, 10001), -80.0, device=dev)
+    v40[:, 1000:] = torch.linspace(-60.0, 60.0, B40, device=dev)[:, None]
+    ts40 = torch.arange(0, 10001, 10, device=dev).float() * 0.1
+    wide512 = N.nnf_init(torch.Generator().manual_seed(0), HH_B06, 5, 512,
+                         device=dev)
+    kw40 = dict(proto_dt=0.1, trips=B40_TRIPS, **B40_TOL)
 
     # ---- (b)-(d) the path, counted -----------------------------------------
     kernels = {"fused_nnf_solve_ft": F.fused_nnf_solve_ft,
@@ -314,22 +364,37 @@ def forward_path(dev, rows) -> dict:
         "popsweep": lambda: E.simulate_population(
             "nnf", pop64, deact, ts_deact, SYNTHETIC, trips=TRIPS),
         "nnd popsweep": lambda: E.simulate_population(
-            "nnd", pop4, act, ts_act, SYNTHETIC, trips=TRIPS)}
+            "nnd", pop4, act, ts_act, SYNTHETIC, trips=TRIPS),
+        "b40": lambda: F.fused_nnf_solve_ft(d1.net, d1.rgate, v40, ts40,
+                                            **kw40),
+        "w40": lambda: F.fused_nnf_solve_ft(wide512.net, wide512.rgate, v40,
+                                            ts40, **kw40)}
     reset_counts()
-    out, secs = {}, {}
+    out, secs, path_pass = {}, {}, {}
     for name, call in calls.items():
         t = time.perf_counter()
         out[name] = call()
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - t
+        if name in ("sweep", "b40", "w40"):
+            path_pass[name] = F.fused_nnf_solve_ft.last_pass
     launches = {n: k.launches for n, k in kernels.items()}
-    i_sweep, i_pop, i_nnd = out.values()
+    i_sweep, i_pop, i_nnd, i_b40, i_w40 = out.values()
     log(f"forward path: host clock s per call (first call, synchronised) "
         f"{secs}")
     check_counts("forward path", launches)
+    log(f"(b) the sweep's launch: {pass_text(path_pass['sweep'])}; (b') at "
+        f"B=40: {pass_text(path_pass['b40'])}, the 5x512 net: "
+        f"{pass_text(path_pass['w40'])}")
+    if (path_pass["sweep"]["layer_pass"] != "cluster"
+            or path_pass["b40"]["clusters"] != 2
+            or path_pass["w40"]["layer_pass"] != "mlp"):
+        raise RuntimeError(f"the sweeps took other passes: {path_pass}")
     for name, cur, shape in (("sweep", i_sweep, (7, 80001)),
                              ("popsweep", i_pop, (P_POP, 9, 100001)),
-                             ("nnd popsweep", i_nnd, (P_NND, 7, 80001))):
+                             ("nnd popsweep", i_nnd, (P_NND, 7, 80001)),
+                             ("(b') d1 gates", i_b40, (B40, 1001, 2)),
+                             ("(b') 5x512 gates", i_w40, (B40, 1001, 2))):
         if tuple(cur.shape) != shape:
             raise RuntimeError(f"{name}: shape {tuple(cur.shape)} != {shape}")
         if not bool(torch.isfinite(cur).all()):
@@ -347,10 +412,26 @@ def forward_path(dev, rows) -> dict:
     ys_p = F._dense_eval_ft(*out_p[:3], out_p[3][0], out_p[3][1], ts_act,
                             lane_ok=out_p[4][0])
     n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
+    info = F._trip_solve_cuda.last_pass
     log(f"(b) sweep B=7: n_acc/n_valid kernel {n_k}, plain {n_p}; kernel "
-        f"{ms_k:.3f} ms, plain {ms_p:.1f} ms")
+        f"{ms_k:.3f} ms ({ms_k / n_k[1]:.4f} ms per executed trip, "
+        f"{pass_text(info)}), plain {ms_p:.1f} ms")
     err = gate_diff("(b) sweep", ys_k, ys_p)
     b2 = dict(out=out_k, ys=ys_k)
+    # the same launch through mlp() (one launch, ~0.34 s) and through
+    # clusters of 16: records bit for bit equal to the cluster pass's
+    ms_g, out_g = cuda_ms(lambda: F._trip_solve_cuda(
+        dataclasses.replace(s, cluster=0)), reps=1, warm=False)
+    ms_16, out_16 = cuda_ms(lambda: F._trip_solve_cuda(
+        dataclasses.replace(s, cluster=16)), reps=3)
+    same_g, same_16 = (same_records(out_k, o, n_k[1]) for o in (out_g, out_16))
+    log(f"(b) the same launch through mlp(): {ms_g:.3f} ms, records "
+        f"{'bit-identical' if same_g else 'differ'}; through clusters of 16: "
+        f"{ms_16:.3f} ms ({ms_16 / n_k[1]:.4f} ms per trip), records "
+        f"{'bit-identical' if same_16 else 'differ'}")
+    if not (same_g and same_16):
+        raise RuntimeError("(b) the cluster pass's records differ from "
+                           "mlp()'s or across cluster sizes")
     i_ode = E.simulate_family("nnf", d1, act, ts_act, SYNTHETIC,
                               backend="xla")
     d_ode = float((i_sweep - i_ode).abs().max())
@@ -360,12 +441,43 @@ def forward_path(dev, rows) -> dict:
         raise RuntimeError(f"sweep vs odeint {d_ode} > {CURRENT_TOL}")
     in_bytes = (b_act.v.numel() + n_params + 8) * 4
     b_ms, b_by = trip_bound(n_k[1], len(act), 2 * macs, in_bytes)
-    rows.append(dict(
+    row = dict(
         name="fused_nnf_solve_ft", route="cuda",
         source="ionflux_torch/csrc/fused_solve.cu",
         replaces="ionflux/ops/pallas_solve.py:472",
         launches=launches["fused_nnf_solve_ft"], max_abs_err=err, ms=ms_k,
-        plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **cluster_fields(info, n_k[1], ms_k, ms_g), ms_c16=ms_16)
+
+    # ---- (b') B2 at B = 40 on two clusters, and the 5 x 512 net -----------
+    for name, net, cur in (("d1", d1, i_b40), ("5x512", wide512, i_w40)):
+        s = F._sweep_setup(net.net, net.rgate, v40, ts40, 0.0, 0.1, 1000.0,
+                           B40_TOL["rtol"], B40_TOL["atol"], B40_TRIPS, None)
+        ms_k, out_k = cuda_ms(lambda: F._trip_solve_cuda(s), reps=3)
+        info = F._trip_solve_cuda.last_pass
+        ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1)
+        n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
+        ys = [F._dense_eval_ft(*o[:3], o[3][0], o[3][1], ts40,
+                               lane_ok=o[4][0]) for o in (out_k, out_p)]
+        log(f"(b') {name} B={B40}: n_acc/n_valid kernel {n_k}, plain {n_p}; "
+            f"kernel {ms_k:.3f} ms ({ms_k / n_k[1]:.4f} ms per executed "
+            f"trip, {pass_text(info)}), plain {ms_p:.1f} ms; the path's "
+            f"launch equals this one: {bool(torch.equal(cur, ys[0]))}")
+        err = max(err, gate_diff(f"(b') {name} B={B40}", *ys))
+        if name == "d1":
+            ms_g, out_g = cuda_ms(lambda: F._trip_solve_cuda(
+                dataclasses.replace(s, cluster=0)), reps=1, warm=False)
+            same = same_records(out_k, out_g, n_k[1])
+            log(f"(b') d1 B={B40} through mlp(): {ms_g:.3f} ms, records "
+                f"{'bit-identical' if same else 'differ'}")
+            if not same:
+                raise RuntimeError("(b') cluster pass and mlp() differ")
+            row.update(ms_b40=ms_k, ms_per_trip_b40=ms_k / n_k[1],
+                       mlp_ms_b40=ms_g)
+        else:
+            row.update(ms_5x512_mlp_pass=ms_k)
+    row["max_abs_err"] = err
+    rows.append(row)
 
     # ---- (c) popsweep kernel vs plain (P = 64), times ----------------------
     b_de = P.stack(deact)
@@ -600,7 +712,8 @@ def d0_path(dev, rows) -> None:
         replaces="ionflux/ops/pallas_solve.py:1015",
         launches=launches["fused_hh_pop_solve_ft"],
         max_abs_err=max(err3, err5, err8, errs), ms=ms_k, plain_ms=ms_p,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, ms_at_8_lanes=ms8))
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, ms_at_8_lanes=ms8,
+        layer_pass=NO_PASS))
 
     # ---- (j) RK4 kernel vs the adaptive kernel and vs plain ----------------
     rk = dict(proto_dt=dt, dt_out=1.0, n_sub=10)
@@ -647,7 +760,8 @@ def d0_path(dev, rows) -> None:
         replaces="ionflux/ops/pallas_rk4.py:87",
         launches=launches["fused_hh_rk4"], max_abs_err=err, ms=ms_k,
         plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        plain_ms_covers=f"{n_win - 1} of {n_out - 1} output intervals"))
+        plain_ms_covers=f"{n_win - 1} of {n_out - 1} output intervals",
+        layer_pass=NO_PASS))
 
     # ---- (k) population solve (Q = 1 case of the trip kernel) vs plain -----
     s = F._pop_setup(pop64.net.layers, pop64.rgate, act20.v, ts_act, 0.0,
@@ -733,16 +847,22 @@ def while_probe_path(dev, rows, fwd: dict) -> None:
         "(n) probe bias": lambda: PR.main("bias", device=dev),
         "(n) probe fold": lambda: PR.main("fold", device=dev)}
     reset_counts()
-    out, secs = {}, {}
+    out, secs, path_pass = {}, {}, {}
     for name, call in calls.items():
         t = time.perf_counter()
         out[name] = call()
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - t
+        if name.startswith("(l"):
+            path_pass[name] = F.fused_nnf_solve.last_pass
     launches = {n: k.launches for n, k in kernels.items()}
     log(f"while/bf16/probe path: host clock s per call (first call, "
         f"synchronised) {secs}")
     check_counts("while/bf16/probe path", launches)
+    for name, info in path_pass.items():
+        log(f"{name}: {pass_text(info)}")
+        if info["layer_pass"] != "cluster":
+            raise RuntimeError(f"{name} took the {info['layer_pass']} pass")
     ys_l, ys_l2, i_bf, pr_bias, pr_fold = out.values()
     for name, x, shape in (("(l)", ys_l, (7, 80001, 2)),
                            ("(l')", ys_l2, (2, 161, 2)),
@@ -759,14 +879,25 @@ def while_probe_path(dev, rows, fwd: dict) -> None:
                        WHILE["max_rec"], None, block=1)
     steps = WHILE["max_steps"]
     ms_k, out_k = cuda_ms(lambda: F._while_solve_cuda(s, steps), reps=3)
+    info = F._while_solve_cuda.last_pass
     ms_p, out_p = cuda_ms(lambda: F._while_solve_plain(s, steps), reps=1)
     n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
     ys_k, ys_p = [F._dense_eval_popsweep_ft(*o[:3], o[3][0], o[3][0].abs(),
                                             ts_act)[0] for o in (out_k, out_p)]
     log(f"(l) while sweep B=7: n_acc/steps kernel {n_k}, plain {n_p}; kernel "
-        f"{ms_k:.3f} ms, plain {ms_p:.1f} ms; the path's launch equals this "
-        f"one: {bool(torch.equal(ys_l, ys_k))}")
+        f"{ms_k:.3f} ms ({ms_k / n_k[1]:.4f} ms per step, "
+        f"{pass_text(info)}), plain {ms_p:.1f} ms; the path's launch equals "
+        f"this one: {bool(torch.equal(ys_l, ys_k))}")
     err = gate_diff("(l) while sweep", ys_k, ys_p)
+    # the same launch through mlp(): records bit for bit equal
+    ms_g, out_g = cuda_ms(lambda: F._while_solve_cuda(
+        dataclasses.replace(s, cluster=0), steps), reps=1, warm=False)
+    same = same_records(out_k, out_g, n_k[0])
+    log(f"(l) the same launch through mlp(): {ms_g:.3f} ms, records "
+        f"{'bit-identical' if same else 'differ'}")
+    if not same:
+        raise RuntimeError("(l) the cluster pass's records differ from "
+                           "mlp()'s")
     # its records against the sweep kernel's accepted trips of (b)
     b2_sc, b2_y, b2_k, b2_n, _ = fwd["b2"]["out"]
     acc = accepted_trips(b2_sc, int(b2_n[1]))
@@ -807,7 +938,8 @@ def while_probe_path(dev, rows, fwd: dict) -> None:
         source="ionflux_torch/csrc/fused_solve.cu",
         replaces="ionflux/ops/pallas_solve.py:182",
         launches=launches["fused_nnf_solve"], max_abs_err=err, ms=ms_k,
-        plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **cluster_fields(info, n_k[1], ms_k, ms_g)))
 
     # ---- (m) the popsweep in mxu_bf16 vs plain, vs f32 --------------------
     def pop_setup(pop, bf16):
@@ -900,7 +1032,7 @@ def while_probe_path(dev, rows, fwd: dict) -> None:
         replaces="scripts/probe_mosaic_bias_fault.py:41",
         launches=launches["bias_probe"], max_abs_err=err, ms=ms[False],
         plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ms_fold=ms[True]))
+        ms_fold=ms[True], layer_pass=NO_PASS))
 
 
 def main() -> int:

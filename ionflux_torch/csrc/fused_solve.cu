@@ -23,14 +23,68 @@
 // the trained 200-wide, 7-layer width); the records, the only output, are ~16
 // floats per lane per trip.
 //
-// Two layer passes.  The sweep (P = 1) and the while-loop sweep keep mlp():
-// thread j owns output column j and walks k, loading W[k][j] from L2 per k
-// and feeding RT FMAs from row-major activations.  That pass waits on one
-// weight load per k-step, with few loads in flight per SM, so the population
-// launches, which stream a different member's 0.8 MB of f32 weights through
-// every block, ran at ~6% FMA issue on it (PERF.md, PR 4).  The popsweep and
-// the population solve (B1, B4) take mlp_ring() instead, chosen by the entry
-// point (the wrapper's `ring` flag), never by P:
+// Three layer passes.  mlp(), the first: thread j owns output column j and
+// walks k, loading W[k][j] from L2 per k and feeding RT FMAs from row-major
+// activations.  That pass waits on one weight load per k-step, with few
+// loads in flight per SM: the sweeps ran on it at ~7.8 us per 200-wide layer
+// on one SM, 1,300x their bound, and the population launches, which stream a
+// different member's 0.8 MB of f32 weights through every block, at ~6% FMA
+// issue (PERF.md).  It stays for sweep nets whose slices do not fit a
+// cluster's shared memory (the wrapper's size rule, see mlp_cluster()).
+//
+// The sweeps (B2, B6: one net, P = 1) take mlp_cluster(), chosen by the
+// wrapper's size rule (ops/fused_solve.py::sweep_cluster):
+//
+//   * A row tile runs on a thread-block cluster of C blocks (8; 16 takes
+//     the non-portable cluster size and was no faster, PERF.md), one per
+//     SM.  Block `rank` owns columns [rank cols, (rank + 1) cols) of every
+//     hidden layer: the wrapper packs those column slices (weights
+//     row-major [in, cols], then the cols biases), and layer 0 and the
+//     last layer whole, as one contiguous 16-byte-aligned row per rank
+//     (cluster_geometry, _cluster_pack).  The block copies its row into
+//     shared memory once per launch, one bulk copy per layer (the TMA
+//     engine) on one mbarrier: 105 KB at C = 8 for the trained 200-wide,
+//     7-layer net, whose 802 KB no single SM holds.  No weight is read
+//     from L2 or HBM inside the trip loop.
+//   * Every block holds the full layer input, k-major [k][RT + 4], in
+//     three exchange buffers.  A hidden layer: each block sums its slice's
+//     outputs (one fmaf chain over k = 0..in-1 from 0, + bias, leaky, as
+//     mlp(); a thread task is 2 rows x 2 columns, 4 x 2 at 32 rows), stores
+//     them into every peer's buffer through DSMEM (mapa +
+//     st.shared::cluster), and the cluster meets at one barrier
+//     (arrive.release / wait.acquire).  The exchanges of an evaluation
+//     write e0 and e1 in turn and the last one e2, which only the last
+//     layer reads: so one barrier per layer also ends every read of the
+//     buffer the next exchange writes, across evaluations too.
+//   * Layer 0 (2 inputs) and the last layer (one output) are whole in
+//     every block and computed there without an exchange: 5 exchanges per
+//     evaluation, 30 per trip, for the 7-layer net.  Layer 0 writes e1,
+//     which no peer writes before the first exchange's barrier.  The last
+//     layer runs in mlp()'s order (warp 0, lane-strided k, the same shuffle
+//     tree), so the records are bit-identical to mlp()'s.  A hidden layer
+//     one wide takes mlp() instead (the size rule).
+//   * Lane state, stage combinations, error norm and controller are
+//     replicated in every block of the cluster: the same inputs in the same
+//     order give the same bits, so nothing else is exchanged.  Rank 0
+//     writes the records, n_out and alive.  Row tiles of several clusters
+//     (B > 32) share one controller through grid_reduce with one partial
+//     per cluster, in a launch with the cluster and cooperative attributes
+//     together; one cluster needs no grid barrier at all, since each block
+//     already holds every lane's values.  Every block leaves through a
+//     final cluster barrier, so no peer still stores into a block that
+//     has left.
+//
+//   What bounds it on this card: at the sweeps' 7 rows, each exchange is
+//   a 200-long dependent fmaf chain from shared memory, held by the
+//   shared-memory loads that feed it (two per link per task), then the
+//   DSMEM stores and the barrier, 30 exchanges per trip; at 32 rows the
+//   FMAs of a block's slice (160 k at C = 8) add their issue time.  At 7
+//   rows the chains are ~40% of a trip, the barriers, the last layers and
+//   the lane work the rest; it runs at ~340x the trip's FLOP bound
+//   (PERF.md, scripts/probe_cluster_pass_torch.py).
+//
+// The popsweep and the population solve (B1, B4) take mlp_ring(), chosen by
+// the entry point (the wrapper's `ring` flag), never by P:
 //
 //   * The weights a block reads in a trip are known before it starts: layers
 //     0..L-1 of its member, over and over.  The wrapper packs each layer in
@@ -116,6 +170,13 @@ struct Args {
   int stage_bytes;
   int q_real;  // rows before the popsweep's padding (copies of row
                // q_real - 1); the ring pass computes no padded row it can copy
+  // mlp_cluster only: blocks per cluster (1 for the other passes), per
+  // layer its offset in a rank's packed row (floats) and its columns per
+  // block, and the floats of a rank's row
+  int csize;
+  int cl_off[kMaxLayers], cl_cols[kMaxLayers];
+  int cl_floats;
+  int cl_ex;  // layers exchanged per evaluation (the hidden ones)
   int p, q, n_pad, rt, tiles, trips, block, cull, has_base, max_steps;
   float t0, inv_dt, h0, t_end, span, rtol, atol, trips_f;
   float p1, p2, p3, p4, p5, p6, p7, p8;
@@ -607,13 +668,69 @@ __device__ float* mlp_ring(const Args& a, const WT* wm, const float* bm,
   return src;
 }
 
+// ---------------------------------------------------------------------------
+// The sweeps' layer pass (B2, B6): weights in a cluster's shared memory,
+// activations exchanged through DSMEM (see the header).
+// ---------------------------------------------------------------------------
+
+// The kernels' layer passes: mlp(), mlp_ring(), mlp_cluster()
+enum Pass { kGlobal = 0, kRing = 1, kCluster = 2 };
+
+// A cluster-pass thread task: TR rows x kClusterCols columns, TR = 2 at 8
+// and 16 rows, 4 at 32.  Each k-step loads the task's weights and inputs
+// once from shared memory for TR x kClusterCols FMAs: at the sweeps' 7 rows
+// the loads, not the FMAs, pace the chains (PERF.md,
+// scripts/probe_cluster_pass_torch.py).  A slice's columns are a multiple
+// of kClusterCols (CLUSTER_COLS in ops/fused_solve.py).
+constexpr int kClusterCols = 2;
+template <int RT>
+__host__ __device__ constexpr int cluster_tr() { return RT < 32 ? 2 : 4; }
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Store x[0..TR) at shared address `addr` of every block of the cluster
+// (the same offset in each block's window; 8- or 16-byte aligned for TR =
+// 2 or 4)
+template <int TR>
+__device__ __forceinline__ void push(uint32_t addr, const float* x,
+                                     int csize) {
+  for (int q = 0; q < csize; ++q) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(r)
+                 : "r"(addr), "r"(q));
+    if constexpr (TR == 4)
+      asm volatile(
+          "st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(r),
+          "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3])
+          : "memory");
+    else if constexpr (TR == 2)
+      asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(r),
+                   "f"(x[0]), "f"(x[1])
+                   : "memory");
+    else
+      asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(r), "f"(x[0])
+                   : "memory");
+  }
+}
+
 // A block's shared state.  The activation buffers h0, h1 hold element
 // (row r, column k) at r * ld_r + k * ld_k: row-major [RT, wmax] for mlp(),
-// k-major [round16(wmax), ring_rts] for mlp_ring().
+// k-major [round16(wmax), ring_rts] for mlp_ring(); for mlp_cluster() h0 is
+// the layer-0 input and h1 the output, [2, ring_rts] each, k-major, and the
+// exchange buffers e0, e1, e2 are [wmax, ring_rts]; w is its slice of the
+// weights (cluster pass only).
 template <int RT>
 struct Smem {
+  float* e0;
+  float* e1;
+  float* e2;
   float* h0;
   float* h1;
+  const float* w;
   float* k;      // [7, RT, 2]
   float* y;      // [RT, 2]
   float* f;      // [RT, 2]
@@ -624,12 +741,17 @@ struct Smem {
   int* pend;     // [RT]
   int ld_r, ld_k;
 
-  __device__ Smem(float* base, const Args& a, bool ring) {
-    ld_r = ring ? 1 : a.wmax;
-    ld_k = ring ? ring_rts<RT>() : 1;
-    h0 = base;
-    h1 = h0 + act(a.wmax, ring);
-    k = h1 + act(a.wmax, ring);
+  __device__ Smem(float* base, const Args& a, int pass,
+                  const float* weights) {
+    ld_r = pass != kGlobal ? 1 : a.wmax;
+    ld_k = pass != kGlobal ? ring_rts<RT>() : 1;
+    e0 = base;
+    e1 = e0 + ex(a.wmax, pass);
+    e2 = e1 + ex(a.wmax, pass);
+    h0 = e2 + ex(a.wmax, pass);
+    h1 = h0 + act(a.wmax, pass);
+    w = weights;
+    k = h1 + act(a.wmax, pass);
     y = k + 7 * RT * 2;
     f = y + RT * 2;
     yi = f + RT * 2;
@@ -639,23 +761,166 @@ struct Smem {
     pend = alive + RT;
   }
 
-  // floats of one activation buffer
-  __host__ __device__ static int act(int wmax, bool ring) {
-    return ring ? round_up(wmax, 16) * ring_rts<RT>() : RT * wmax;
+  // floats of one activation buffer, of one exchange buffer
+  __host__ __device__ static int act(int wmax, int pass) {
+    return pass == kCluster ? 2 * ring_rts<RT>()
+           : pass == kRing  ? round_up(wmax, 16) * ring_rts<RT>()
+                            : RT * wmax;
+  }
+  __host__ __device__ static int ex(int wmax, int pass) {
+    return pass == kCluster ? wmax * ring_rts<RT>() : 0;
   }
 
-  static size_t bytes(int wmax, bool ring) {
-    return sizeof(float) * ((size_t)2 * act(wmax, ring) + 7 * RT * 2 +
+  // (ops/fused_solve.py::cluster_smem_bytes repeats this for the size rule)
+  static size_t bytes(int wmax, int pass) {
+    return sizeof(float) * ((size_t)2 * act(wmax, pass) +
+                            (size_t)3 * ex(wmax, pass) + 7 * RT * 2 +
                             3 * RT * 2 + 2 * RT) + sizeof(int) * 2 * RT;
   }
 };
 
-// f(t, ysrc) for this block's lanes into kdst [RT, 2], through mlp() or,
-// with RING, mlp_ring()
-template <int RT, typename WT, bool RING>
+// Copy this block's slice of the weights (its rank's packed row) into s.w,
+// one bulk copy per layer on one mbarrier, and wait for it.  All threads
+// call it, once per launch.
+template <int RT>
+__device__ void cluster_load(const Args& a, const Smem<RT>& s, uint64_t* bar,
+                             int rank) {
+  if (threadIdx.x == 0) {
+    const uint32_t b = smem_addr(bar);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+        "r"(a.cl_floats * 4)
+        : "memory");
+    const float* src = static_cast<const float*>(a.w) +
+                       (size_t)rank * a.cl_floats;
+    for (int l = 0; l < a.n_layers; ++l) {
+      const int end = l + 1 < a.n_layers ? a.cl_off[l + 1] : a.cl_floats;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(s.w + a.cl_off[l])),
+          "l"(src + a.cl_off[l]), "r"((end - a.cl_off[l]) * 4), "r"(b)
+          : "memory");
+    }
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  bar_wait(bar, 0);
+  // every block of the cluster runs before any block stores into it
+  cluster_barrier();
+}
+
+// The cluster pass over all layers (see the header).  s.h0 holds the
+// layer-0 input (k-major, rows 0..nr-1); returns s.h1, holding the [RT]
+// output.  All threads of every block of the cluster call it.
+template <int RT>
+__device__ float* mlp_cluster(const Args& a, const Smem<RT>& s, int nr) {
+  constexpr int RTS = ring_rts<RT>(), TR = cluster_tr<RT>(), RG = RT / TR;
+  constexpr int TC = kClusterCols;
+  const int rank = blockIdx.x % a.csize;
+  const float* src = s.h0;
+  int n_ex = 0;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int din = a.sizes[l], dout = a.sizes[l + 1], cols = a.cl_cols[l];
+    const float* W = s.w + a.cl_off[l];  // [din, cols], then cols biases
+    if (dout == 1) {
+      // the last layer, in every block: warp 0 splits the k sum over its
+      // lanes exactly as mlp() does
+      if (threadIdx.x < 32) {
+        const int lane = threadIdx.x;
+        float acc[RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) acc[r] = 0.f;
+        for (int k = lane; k < din; k += 32) {
+          const float wk = W[k];
+#pragma unroll
+          for (int r = 0; r < RT; ++r) acc[r] = fmaf(src[k * RTS + r], wk, acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+        }
+        if (lane == 0) {
+          const float bj = W[din];
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+            if (r < nr) s.h1[r] = acc[r] + bj;
+        }
+      }
+      __syncthreads();
+    } else {
+      // layer 0, whole in every block, into e1 (no peer writes e1 before
+      // the first exchange's barrier); a hidden layer: this block's
+      // columns, pushed to every block, into e0, e1 in turn and e2 for the
+      // evaluation's last exchange
+      const bool whole = cols >= dout;
+      float* dst = whole                 ? s.e1
+                   : n_ex == a.cl_ex - 1 ? s.e2
+                   : n_ex & 1            ? s.e1
+                                         : s.e0;
+      const int j0 = whole ? 0 : rank * cols, ncg = cols / TC;
+      for (int t = threadIdx.x; t < RG * ncg; t += kThreads) {
+        const int rg = t / ncg, c0 = (t - rg * ncg) * TC;
+        const int r0 = rg * TR, j = j0 + c0;
+        if (r0 >= nr || j >= dout) continue;
+        float acc[TC][TR];
+#pragma unroll
+        for (int c = 0; c < TC; ++c)
+#pragma unroll
+          for (int r = 0; r < TR; ++r) acc[c][r] = 0.f;
+        const float* xp = src + r0;
+        const float* wp = W + c0;
+        // 32 k-steps' loads in flight before their FMAs: 10% faster than 8
+        // at the sweeps' 7 rows (PERF.md)
+#pragma unroll 32
+        for (int k = 0; k < din; ++k) {
+          float w[TC], x[TR];
+          load_rows<TC>(wp + k * cols, w);
+          load_rows<TR>(xp + k * RTS, x);
+#pragma unroll
+          for (int c = 0; c < TC; ++c)
+#pragma unroll
+            for (int r = 0; r < TR; ++r) acc[c][r] = fmaf(x[r], w[c], acc[c][r]);
+        }
+        float bj[TC];
+        load_rows<TC>(W + din * cols + c0, bj);
+#pragma unroll
+        for (int c = 0; c < TC; ++c) {
+          if (j + c >= dout) break;
+          float y[TR];
+#pragma unroll
+          for (int r = 0; r < TR; ++r) y[r] = leaky(acc[c][r] + bj[c]);
+          float* out = dst + (j + c) * RTS + r0;
+          if (whole) {
+#pragma unroll
+            for (int r = 0; r < TR; ++r) out[r] = y[r];
+          } else {
+            push<TR>(smem_addr(out), y, a.csize);
+          }
+        }
+      }
+      if (whole) {
+        __syncthreads();
+      } else {
+        cluster_barrier();
+        ++n_ex;
+      }
+      src = dst;
+    }
+  }
+  return s.h1;
+}
+
+// f(t, ysrc) for this block's lanes into kdst [RT, 2], through the layer
+// pass PASS names
+template <int RT, typename WT, int PASS>
 __device__ void rhs(const Args& a, const Smem<RT>& s, const WT* wm,
                     const float* bm, Ring& rg, int row0, int nr, float t,
                     const float* ysrc, float* kdst) {
+  constexpr bool RING = PASS == kRing;
   const int tid = threadIdx.x;
   if (tid < nr) {
     const float v = voltage(a, row0 + tid, t);
@@ -667,7 +932,9 @@ __device__ void rhs(const Args& a, const Smem<RT>& s, const WT* wm,
   }
   __syncthreads();
   const float* out;
-  if constexpr (RING)
+  if constexpr (PASS == kCluster)
+    out = mlp_cluster<RT>(a, s, nr);
+  else if constexpr (RING)
     out = mlp_ring<RT, WT>(a, wm, bm, rg, s.h0, s.h1);
   else
     out = mlp<RT>(a, wm, bm, s.h0, s.h1, nr);
@@ -693,7 +960,7 @@ __device__ void rhs(const Args& a, const Smem<RT>& s, const WT* wm,
 
 // One DP5 attempt of this block's lanes from (t, s.y) with first stage s.f
 // and step h_eff: the 7 stages into s.k.  All threads call it.
-template <int RT, typename WT, bool RING>
+template <int RT, typename WT, int PASS>
 __device__ void attempt(const Args& a, const Smem<RT>& s, const WT* wm,
                         const float* bm, Ring& rg, int row0, int nr, float t,
                         float h_eff) {
@@ -715,7 +982,7 @@ __device__ void attempt(const Args& a, const Smem<RT>& s, const WT* wm,
       }
     }
     __syncthreads();
-    rhs<RT, WT, RING>(a, s, wm, bm, rg, row0, nr,
+    rhs<RT, WT, PASS>(a, s, wm, bm, rg, row0, nr,
                       add(t, mul(kC[si], h_eff)), s.yi, s.k + si * RT * 2);
   }
 }
@@ -758,23 +1025,38 @@ __device__ void record(const Args& a, const Smem<RT>& s, int tid, size_t i,
   }
 }
 
-// Grid-wide (max, sum) of one value per block.  All threads call it; the
-// block's values are read from thread 0.  Slots alternate by `seq` parity:
-// a block can only overwrite a slot after every block has passed the
-// barrier that follows the last read of it.  The max propagates NaN.
+// Grid-wide (max, sum) of one value per unit: a block, or in the cluster
+// pass a cluster, whose blocks hold the same values and whose rank 0 writes
+// them.  All threads call it; the block's values are read from thread 0.
+// Slots alternate by `seq` parity: a block can only overwrite a slot after
+// every block has passed the barrier that follows the last read of it.  The
+// max propagates NaN.  One cluster alone needs no barrier: its values are
+// the launch's.
 __device__ void grid_reduce(const Args& a, cg::grid_group& grid, int& seq,
                             float lmax, int lcnt, float* gmax, int* gcnt,
                             float* red_m, int* red_c) {
-  Partial* slots = a.part + (size_t)(seq & 1) * gridDim.x;
-  if (threadIdx.x == 0) {
-    slots[blockIdx.x].max_ratio = lmax;
-    slots[blockIdx.x].alive = lcnt;
+  const int units = gridDim.x / a.csize;
+  if (a.csize > 1 && units == 1) {
+    if (threadIdx.x == 0) {
+      *red_m = lmax;
+      *red_c = lcnt;
+    }
+    __syncthreads();
+    *gmax = *red_m;
+    *gcnt = *red_c;
+    __syncthreads();
+    return;
+  }
+  Partial* slots = a.part + (size_t)(seq & 1) * units;
+  if (threadIdx.x == 0 && blockIdx.x % a.csize == 0) {
+    slots[blockIdx.x / a.csize].max_ratio = lmax;
+    slots[blockIdx.x / a.csize].alive = lcnt;
   }
   grid.sync();
   if (threadIdx.x < 32) {
     float m = 0.f;
     int c = 0;
-    for (int b = threadIdx.x; b < (int)gridDim.x; b += 32) {
+    for (int b = threadIdx.x; b < units; b += 32) {
       m = nanmax(m, __ldcg(&slots[b].max_ratio));
       c += __ldcg(&slots[b].alive);
     }
@@ -811,21 +1093,29 @@ __device__ __forceinline__ void block_stats(float m, int c, float* lmax,
   }
 }
 
-// RING picks the layer pass: mlp_ring() (B1, B4; its stages lead the
-// dynamic shared memory) or mlp() (B2, f32 only)
-template <int RT, typename WT, bool RING>
+// PASS picks the layer pass: mlp_ring() (B1, B4; its stages lead the
+// dynamic shared memory), mlp_cluster() (B2, f32; its weight slice leads)
+// or mlp() (B2, f32)
+template <int RT, typename WT, int PASS>
 __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
+  constexpr bool RING = PASS == kRing, CLUSTER = PASS == kCluster;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(128) unsigned char dyn[];
   __shared__ float red_m;
   __shared__ int red_c;
   __shared__ uint64_t ring_bar[kStages];
-  const int ring_bytes = RING ? kStages * a.stage_bytes : 0;
-  const Smem<RT> s(reinterpret_cast<float*>(dyn + ring_bytes), a, RING);
+  const int lead = RING      ? kStages * a.stage_bytes
+                   : CLUSTER ? a.cl_floats * 4
+                             : 0;
+  const Smem<RT> s(reinterpret_cast<float*>(dyn + lead), a, PASS,
+                   reinterpret_cast<const float*>(dyn));
 
   const int tid = threadIdx.x;
-  const int member = blockIdx.x / a.tiles;
-  const int row0 = (blockIdx.x % a.tiles) * a.rt;
+  // a unit is a block, or a cluster of a.csize blocks (consecutive in x)
+  const int unit = blockIdx.x / a.csize;
+  const bool writer = blockIdx.x % a.csize == 0;
+  const int member = unit / a.tiles;
+  const int row0 = (unit % a.tiles) * a.rt;
   const int nr = min(a.rt, a.q - row0);
   const bool lane = tid < nr;
   const WT* wm = static_cast<const WT*>(a.w) + (size_t)member * a.w_stride;
@@ -836,6 +1126,7 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
   Ring rg{};
   rg.rows = max(1, min(nr, a.q_real - row0));
   if (RING) ring_start<WT>(a, wm, rg, dyn, ring_bar);
+  if (CLUSTER) cluster_load<RT>(a, s, ring_bar, blockIdx.x % a.csize);
 
   // ---- initial state: dead lanes (non-finite y0 or f0) reset to rest ----
   if (lane) {
@@ -843,7 +1134,7 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
     s.y[tid * 2 + 1] = a.y0[lane_off + 1];
   }
   __syncthreads();
-  rhs<RT, WT, RING>(a, s, wm, bm, rg, row0, nr, a.t0, s.y, s.f);
+  rhs<RT, WT, PASS>(a, s, wm, bm, rg, row0, nr, a.t0, s.y, s.f);
   bool alive_l = false;
   if (lane) {
     alive_l = finite(s.y[tid * 2]) && finite(s.y[tid * 2 + 1]) &&
@@ -870,7 +1161,7 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
     for (int j = 0; j < a.block; ++j) {
       const size_t i = (size_t)blk * a.block + j;
       const float h_eff = fmaxf(fminf(h, sub(a.t_end, t)), 1e-8f);
-      attempt<RT, WT, RING>(a, s, wm, bm, rg, row0, nr, t, h_eff);
+      attempt<RT, WT, PASS>(a, s, wm, bm, rg, row0, nr, t, h_eff);
 
       float r = 0.f, rc = 0.f, y1[2] = {0.f, 0.f};
       bool bad = false;
@@ -880,7 +1171,7 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
         r = add(r, mul(add(sc[0], sc[1]), 0.f));
         bad = !(r < INFINITY);
         rc = bad ? 3.4e38f : r;
-        record<RT>(a, s, tid, i, pq2, lane_off);  // this trip's attempt
+        if (writer) record<RT>(a, s, tid, i, pq2, lane_off);  // this attempt
       }
       if (blockIdx.x == 0 && tid == 0) {
         a.rec_sc[i * 2] = t;
@@ -935,13 +1226,16 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
     ++blk;
   }
 
-  if (lane) a.alive_out[(size_t)member * a.q + row0 + tid] = s.alive[tid] ? 1 : 0;
+  if (lane && writer)
+    a.alive_out[(size_t)member * a.q + row0 + tid] = s.alive[tid] ? 1 : 0;
   if (blockIdx.x == 0 && tid == 0) {
     a.n_out[0] = t >= a.t_end ? n_acc : -max(n_acc, 1);
     a.n_out[1] = blk * a.block;
   }
   // the ring runs kStages - 1 chunks ahead: let no copy outlive the block
   if (RING) ring_drain(rg);
+  // no block leaves while a peer may still store into its shared memory
+  if (CLUSTER) cluster_barrier();
 }
 
 // ---------------------------------------------------------------------------
@@ -965,39 +1259,46 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
 //
 // What bounds it on this card: operations, as trip_kernel; on healthy
 // inputs it takes trip_kernel's accepted steps and about its rejected ones,
-// and one grid barrier per step.
+// and one grid barrier per step (none with one cluster).  It takes
+// trip_kernel's layer passes but the ring: PASS is kCluster or kGlobal.
 // ---------------------------------------------------------------------------
-template <int RT>
+template <int RT, int PASS>
 __global__ void __launch_bounds__(kThreads, 1) while_kernel(Args a) {
+  constexpr bool CLUSTER = PASS == kCluster;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(128) unsigned char dyn[];
   __shared__ float red_m;
   __shared__ int red_c;
-  const Smem<RT> s(reinterpret_cast<float*>(dyn), a, false);
-  Ring rg{};  // unused: the while sweep keeps mlp()
+  __shared__ uint64_t cl_bar;
+  const int lead = CLUSTER ? a.cl_floats * 4 : 0;
+  const Smem<RT> s(reinterpret_cast<float*>(dyn + lead), a, PASS,
+                   reinterpret_cast<const float*>(dyn));
+  Ring rg{};  // unused: no ring here
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * a.rt;
+  const bool writer = blockIdx.x % a.csize == 0;
+  const int row0 = blockIdx.x / a.csize * a.rt;
   const int nr = min(a.rt, a.q - row0);
   const bool lane = tid < nr;
   const float* wm = static_cast<const float*>(a.w);
   const size_t pq2 = (size_t)a.q * 2;
   const size_t lane_off = ((size_t)row0 + tid) * 2;
   int seq = 0;
+  if (CLUSTER) cluster_load<RT>(a, s, &cl_bar, blockIdx.x % a.csize);
 
   if (lane) {
     s.y[tid * 2] = 0.f;
     s.y[tid * 2 + 1] = 1.f;
   }
   __syncthreads();
-  rhs<RT, float, false>(a, s, wm, a.b, rg, row0, nr, a.t0, s.y, s.f);
+  rhs<RT, float, PASS>(a, s, wm, a.b, rg, row0, nr, a.t0, s.y, s.f);
 
   float t = a.t0, h = a.h0, lmax = 0.f, gmax;
   int n_acc = 0, n_step = 0, lcnt = 0, gcnt;
   bool go = true;
   while (go) {
     const float h_eff = nanmax(fminf(h, sub(a.t_end, t)), 1e-8f);
-    attempt<RT, float, false>(a, s, wm, a.b, rg, row0, nr, t, h_eff);
+    attempt<RT, float, PASS>(a, s, wm, a.b, rg, row0, nr, t, h_eff);
     float r = 0.f, y1[2] = {0.f, 0.f};
     bool fin = true;
     if (lane) {
@@ -1011,7 +1312,7 @@ __global__ void __launch_bounds__(kThreads, 1) while_kernel(Args a) {
     const bool accept = ratio <= 1.f && gcnt == 0 && finite(ratio);
     if (accept) {
       if (lane) {
-        record<RT>(a, s, tid, n_acc, pq2, lane_off);
+        if (writer) record<RT>(a, s, tid, n_acc, pq2, lane_off);
         s.y[tid * 2] = y1[0];
         s.y[tid * 2 + 1] = y1[1];
         s.f[tid * 2] = s.k[(6 * RT + tid) * 2];
@@ -1036,6 +1337,7 @@ __global__ void __launch_bounds__(kThreads, 1) while_kernel(Args a) {
     a.n_out[0] = t >= a.t_end ? n_acc : -n_acc;
     a.n_out[1] = n_step;
   }
+  if (CLUSTER) cluster_barrier();
 }
 
 // One cooperative launch of `kern` over `grid` blocks, after checking that
@@ -1064,23 +1366,114 @@ cudaError_t launch_coop(Kern kern, Args& a, int grid, size_t smem,
                                      args, smem, stream);
 }
 
-template <int RT, bool RING>
+// One launch of `kern` over `units` clusters of a.csize blocks, after
+// checking that they can all be resident at once.  Several clusters share
+// a grid barrier, so their launch is cooperative too: the runtime takes the
+// cluster dimension and the cooperative attribute together
+// (scripts/probe_cluster_launch_torch.py).
+template <typename Kern>
+cudaError_t launch_cluster(Kern kern, Args& a, int units, size_t smem,
+                           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (a.csize > 8 &&
+      (err = cudaFuncSetAttribute(
+           kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+          cudaSuccess)
+    return err;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = a.csize;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(units * a.csize);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int most = 0;
+  if ((err = cudaOccupancyMaxActiveClusters(&most, (const void*)kern,
+                                            &cfg)) != cudaSuccess)
+    return err;
+  if (most < units) return cudaErrorCooperativeLaunchTooLarge;
+  cfg.numAttrs = units > 1 ? 2 : 1;
+  void* args[] = {&a};
+  return cudaLaunchKernelExC(&cfg, (const void*)kern, args);
+}
+
+template <int RT, int PASS>
 cudaError_t launch_trip(Args& a, bool bf16, cudaStream_t stream) {
-  const size_t smem = Smem<RT>::bytes(a.wmax, RING) +
-                      (RING ? (size_t)kStages * a.stage_bytes : 0);
+  const size_t smem = Smem<RT>::bytes(a.wmax, PASS) +
+                      (PASS == kRing ? (size_t)kStages * a.stage_bytes
+                       : PASS == kCluster ? (size_t)a.cl_floats * 4
+                                          : 0);
   const int grid = a.p * a.tiles;
-  if (!bf16) return launch_coop(trip_kernel<RT, float, RING>, a, grid, smem,
+  if constexpr (PASS == kCluster)
+    return launch_cluster(trip_kernel<RT, float, kCluster>, a, grid, smem,
+                          stream);
+  if (!bf16) return launch_coop(trip_kernel<RT, float, PASS>, a, grid, smem,
                                 stream);
-  if constexpr (RING && RT > 1)
-    return launch_coop(trip_kernel<RT, __nv_bfloat16, true>, a, grid, smem,
+  if constexpr (PASS == kRing && RT > 1)
+    return launch_coop(trip_kernel<RT, __nv_bfloat16, kRing>, a, grid, smem,
                        stream);
   return cudaErrorInvalidValue;  // bf16 runs only through the ring, RT >= 8
 }
 
+// The trip kernel at row-tile instantiation RT, through the pass the entry
+// point asks for
+template <int RT>
+cudaError_t launch_trip_rt(Args& a, int ring, bool bf16, cudaStream_t s) {
+  if (ring) return launch_trip<RT, kRing>(a, bf16, s);
+  if (a.csize > 1) return launch_trip<RT, kCluster>(a, false, s);
+  return launch_trip<RT, kGlobal>(a, false, s);
+}
+
 template <int RT>
 cudaError_t launch_while(Args& a, cudaStream_t stream) {
-  return launch_coop(while_kernel<RT>, a, a.tiles,
-                     Smem<RT>::bytes(a.wmax, false), stream);
+  if (a.csize > 1)
+    return launch_cluster(while_kernel<RT, kCluster>, a, a.tiles,
+                          Smem<RT>::bytes(a.wmax, kCluster) +
+                              (size_t)a.cl_floats * 4,
+                          stream);
+  return launch_coop(while_kernel<RT, kGlobal>, a, a.tiles,
+                     Smem<RT>::bytes(a.wmax, kGlobal), stream);
+}
+
+// The cluster pass's fields from the wrapper's geometry (csize blocks per
+// cluster; per layer its offset and columns; a rank's floats); false if the
+// net or the geometry is out of its range: P = 1, every hidden layer at
+// least 2 wide, 2..16 blocks, each layer's slice a whole number of 16-byte
+// words that covers its columns and bias, layer 0 and the last layer whole,
+// the others sliced
+bool init_cluster(Args& a, int csize, const int* cgeom, int cl_floats) {
+  a.csize = 1;
+  a.cl_ex = 0;
+  if (csize <= 1) return true;
+  if (csize > 16 || a.p != 1 || cl_floats < 4 || cl_floats % 4) return false;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int din = a.sizes[l], dout = a.sizes[l + 1];
+    const int off = cgeom[2 * l], cols = cgeom[2 * l + 1];
+    const int end = l + 1 < a.n_layers ? cgeom[2 * l + 2] : cl_floats;
+    // whole in every block: layer 0 (cols = out) and the last (out 1)
+    const bool whole = l == 0 || dout == 1;
+    if (off % 4 || end - off < (din + 1) * cols || cols < 1 ||
+        (dout == 1) != (l == a.n_layers - 1) ||
+        (dout > 1 && cols % kClusterCols) ||
+        (whole ? cols < dout || cols >= dout + kClusterCols
+               : cols * csize < dout || cols >= dout))
+      return false;
+    a.cl_off[l] = off;
+    a.cl_cols[l] = cols;
+    a.cl_ex += !whole;
+  }
+  a.csize = csize;
+  a.cl_floats = cl_floats;
+  return true;
 }
 
 // The fields both entry points fill the same way; false if out of range
@@ -1118,6 +1511,7 @@ bool init_args(Args& a, const float* vpad, const int* sizes, int n_layers,
   a.p6 = scal[13];
   a.p7 = scal[14];
   a.p8 = scal[15];
+  a.csize = 1;
   return true;
 }
 
@@ -1129,10 +1523,13 @@ extern "C" int ionflux_trip_solve(
     float* rec_k, int* n_out, uint8_t* alive_out, void* partial,
     const int* sizes, int n_layers, int p, int q, int n_pad, int rt,
     int trips, int block, int cull, int has_base, const float* scal,
-    int ring, const int* geom, int stage_bytes, int q_real, void* stream) {
+    int ring, const int* geom, int stage_bytes, int q_real, int csize,
+    const int* cgeom, int cl_floats, void* stream) {
   Args a;
   if (!init_args(a, vpad, sizes, n_layers, p, q, n_pad, rt, scal) ||
-      block < 1 || trips % block != 0)
+      block < 1 || trips % block != 0 ||
+      !init_cluster(a, csize, cgeom, cl_floats) ||
+      (csize > 1 && (ring || bf16)))
     return (int)cudaErrorInvalidValue;
   if (ring) {
     // geom: (offset, chunk depth, chunks) per layer, from the wrapper's
@@ -1169,16 +1566,13 @@ extern "C" int ionflux_trip_solve(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (ring && rt == 1 && !bf16)
-    err = launch_trip<1, true>(a, false, s);
+    err = launch_trip<1, kRing>(a, false, s);
   else if (rt <= 8)
-    err = ring ? launch_trip<8, true>(a, bf16 != 0, s)
-               : launch_trip<8, false>(a, false, s);
+    err = launch_trip_rt<8>(a, ring, bf16 != 0, s);
   else if (rt <= 16)
-    err = ring ? launch_trip<16, true>(a, bf16 != 0, s)
-               : launch_trip<16, false>(a, false, s);
+    err = launch_trip_rt<16>(a, ring, bf16 != 0, s);
   else
-    err = ring ? launch_trip<32, true>(a, bf16 != 0, s)
-               : launch_trip<32, false>(a, false, s);
+    err = launch_trip_rt<32>(a, ring, bf16 != 0, s);
   return (int)err;
 }
 
@@ -1186,10 +1580,12 @@ extern "C" int ionflux_while_solve(
     const float* vpad, const float* w, const float* b, float* rec_sc,
     float* rec_y, float* rec_k, int* n_out, void* partial, const int* sizes,
     int n_layers, int q, int n_pad, int rt, int max_rec, int max_steps,
-    const float* scal, void* stream) {
+    const float* scal, int csize, const int* cgeom, int cl_floats,
+    void* stream) {
   Args a;
   if (!init_args(a, vpad, sizes, n_layers, 1, q, n_pad, rt, scal) ||
-      max_rec < 1 || max_steps < 1)
+      max_rec < 1 || max_steps < 1 ||
+      !init_cluster(a, csize, cgeom, cl_floats))
     return (int)cudaErrorInvalidValue;
   a.w = w;
   a.b = b;

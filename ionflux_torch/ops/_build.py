@@ -105,6 +105,8 @@ _SIGNATURES = {
             _I32, ctypes.POINTER(ctypes.c_int), _I32,  # ring, its geometry,
                                                 # stage bytes,
             _I32,                               # rows before the padding
+            _I32, ctypes.POINTER(ctypes.c_int), _I32,  # cluster size, its
+                                                # geometry, floats per rank
             _PTR,                               # stream
         ],
         "ionflux_while_solve": [
@@ -114,7 +116,10 @@ _SIGNATURES = {
             ctypes.POINTER(ctypes.c_int), _I32,  # sizes, n_layers
             _I32, _I32, _I32, _I32, _I32,       # q, n_pad, rt, max_rec,
                                                 # max_steps
-            _FLOATS, _PTR,                      # scalars, stream
+            _FLOATS,                            # scalars
+            _I32, ctypes.POINTER(ctypes.c_int), _I32,  # cluster size, its
+                                                # geometry, floats per rank
+            _PTR,                               # stream
         ],
     },
     "hh_solve": {

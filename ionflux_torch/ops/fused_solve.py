@@ -140,6 +140,9 @@ class _Setup:
                           # or the sweeps' (see csrc/fused_solve.cu)
     q_real: int = 0       # rows before the popsweep's padding (0: all); the
                           # ring pass copies the padded rows' MLP outputs
+    cluster: int = -1     # the sweeps' layer pass on the card: -1 as
+                          # sweep_cluster's size rule picks it, 0 mlp(),
+                          # C > 1 the cluster pass on clusters of C blocks
 
 
 def _gate_tuples(rgate: HHParams, base_hh: HHParams | None):
@@ -356,12 +359,17 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _tile_rt(row_tile: int) -> int:
+    """The kernel's row-tile instantiation for ``row_tile`` rows."""
+    return next(t for t in (1, 8, 16, 32) if row_tile <= t)
+
+
 def ring_stage_cap(row_tile: int, wmax: int) -> int:
     """The largest ring stage (bytes) that fits a block's shared memory
     beside its activation buffers and lane state, for the kernel's row tile
     (1, 8, 16 or 32 rows, the instantiation ``row_tile`` rows take) and
     widest layer; as csrc/fused_solve.cu's Smem lays them out."""
-    rt = next(t for t in (1, 8, 16, 32) if row_tile <= t)
+    rt = _tile_rt(row_tile)
     act = 2 * _round_up(wmax, 16) * (1 if rt == 1 else rt + 4) * 4
     rest = 96 * rt + 2048
     return min(RING_STAGE_BYTES,
@@ -429,16 +437,118 @@ def _ring_pack(layers, bf16: bool, stage_cap: int = RING_STAGE_BYTES):
             geom, stage)
 
 
+# The sweeps' cluster pass (B2, B6): clusters of CLUSTER_SIZE blocks, the
+# faster of 8 and 16 at chip_smoke.py's (b) (PERF.md); 16 needs the
+# non-portable cluster size and fits 7 clusters on the card, 8 fits 15
+CLUSTER_SIZE = 8
+CLUSTER_COLS = 2           # a slice's columns are a multiple of this
+                           # (kClusterCols: a thread task's columns)
+_SMEM_STATIC = 1024        # what a launch keeps back for static shared memory
+
+
+def cluster_geometry(sizes, csize: int):
+    """How ``_cluster_pack`` lays out one rank's row for the cluster pass:
+    per layer (offset in floats, columns per block), and the floats of the
+    row.  A hidden layer's slice is ceil(out / csize) columns rounded up
+    to CLUSTER_COLS, [in, cols] row-major then the cols biases; layer 0 (2
+    inputs) and the last layer (one output) are whole in every rank
+    (layer 0's columns rounded up too), computed by every block without an
+    exchange.  Padded columns are zero.  Each slice is padded to 4 floats,
+    so every bulk copy moves whole 16-byte words between 16-byte-aligned
+    addresses."""
+    geom, off = [], 0
+    for l, (d_in, d_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+        cols = (1 if d_out == 1
+                else _round_up(d_out if l == 0 else -(-d_out // csize),
+                               CLUSTER_COLS))
+        geom.append((off, cols))
+        off += _round_up((d_in + 1) * cols, 4)
+    return geom, off
+
+
+def _cluster_pack(layers, csize: int):
+    """The weights and biases of one net (layers [(W [1, in, out], b [1,
+    out])]) as csize packed rows [csize, stride] f32, rank q's holding
+    columns [q cols, (q + 1) cols) of every hidden layer and layer 0 and the
+    last layer whole, zero in every padding; with ``cluster_geometry``'s
+    geometry."""
+    sizes = [layers[0][0].shape[1]] + [w.shape[2] for w, _ in layers]
+    geom, stride = cluster_geometry(sizes, csize)
+    w0 = layers[0][0]
+    out = torch.zeros((csize, stride), dtype=torch.float32, device=w0.device)
+    for (w, b), (off, cols) in zip(layers, geom):
+        d_in, d_out = w.shape[1:]
+        ranks = 1 if cols >= d_out else csize   # whole, or sliced
+        wp = torch.zeros((d_in, ranks * cols), dtype=w.dtype, device=w.device)
+        wp[:, :d_out] = w[0]
+        wq = wp.reshape(d_in, ranks, cols).transpose(0, 1).reshape(
+            ranks, d_in * cols).expand(csize, d_in * cols)
+        bq = torch.zeros(ranks * cols, dtype=b.dtype, device=b.device)
+        bq[:d_out] = b[0]
+        bq = bq.reshape(ranks, cols).expand(csize, cols)
+        out[:, off:off + d_in * cols] = wq
+        out[:, off + d_in * cols:off + (d_in + 1) * cols] = bq
+    return out, geom, stride
+
+
+def cluster_smem_bytes(row_tile: int, sizes, csize: int) -> int:
+    """Dynamic shared memory of one block of the cluster pass: its weight
+    row, three exchange buffers [wmax, RT + 4], the layer-0 input and the
+    output [2, RT + 4] each, and the lane state, as csrc/fused_solve.cu's
+    Smem lays them out."""
+    rt = max(8, _tile_rt(row_tile))
+    rts = rt + 4
+    _, stride = cluster_geometry(sizes, csize)
+    return 4 * (stride + 3 * max(sizes) * rts + 2 * 2 * rts + 7 * rt * 2
+                + 3 * rt * 2 + 2 * rt) + 4 * 2 * rt
+
+
+def sweep_cluster(sizes, row_tile: int, csize: int = CLUSTER_SIZE) -> int:
+    """The size rule of the sweeps' layer pass: ``csize`` (the cluster pass)
+    when every hidden layer is at least 2 wide (a one-wide hidden layer
+    keeps mlp()'s sum order only in mlp()) and a block's slices, buffers
+    and lane state fit the shared memory a block may take; 0 (mlp(), the
+    weights read from L2) otherwise."""
+    if min(sizes[1:-1], default=2) < 2:
+        return 0
+    fits = cluster_smem_bytes(row_tile, sizes, csize) <= (
+        _SMEM_BYTES - _SMEM_STATIC)
+    return csize if fits else 0
+
+
+def _sweep_pass(s: _Setup, row_tile: int) -> int:
+    """The blocks per cluster of a sweep launch (0: mlp()): the size rule,
+    or what ``s.cluster`` forces.  Raises for a forced size that does not
+    fit."""
+    sizes = [s.layers[0][0].shape[1]] + [w.shape[2] for w, _ in s.layers]
+    if s.cluster < 0:
+        return sweep_cluster(sizes, row_tile)
+    if s.cluster and sweep_cluster(sizes, row_tile, s.cluster) != s.cluster:
+        raise ValueError(f"the cluster pass at C = {s.cluster} does not take "
+                         f"this net at {row_tile} rows")
+    return s.cluster
+
+
+def _pass_info(csize: int, units: int) -> dict:
+    return dict(layer_pass="cluster" if csize else "mlp",
+                cluster_size=csize, clusters=units if csize else 0)
+
+
 def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE):
     """What both CUDA entry points take besides the outputs: the weights as
     one flat row per member (bf16 when ``s.bf16``): W0, W1, ... row-major
-    [in, out] for the sweeps' pass, ``_ring_pack``'s layout with ``s.ring``;
-    the ring's geometry (or None), the biases in f32, the layer widths and
-    the 16 scalars.  ``row_tile`` sizes the ring's stages."""
+    [in, out] for mlp(), ``_ring_pack``'s layout with ``s.ring``, or
+    ``_cluster_pack``'s rows for the sweeps' cluster pass; the ring's
+    geometry (or None), the biases in f32, the layer widths, the 16 scalars
+    and the cluster pass's (blocks per cluster, geometry, floats per rank),
+    (0, None, 0) for the other passes.  ``row_tile`` sizes the ring's
+    stages and decides the sweeps' pass."""
     if len(s.layers) > 16:
         raise ValueError("the CUDA kernel takes at most 16 layers")
     p = s.y0.shape[0]
     sizes = [s.layers[0][0].shape[1]] + [w.shape[2] for w, _ in s.layers]
+    csize = 0 if s.ring else _sweep_pass(s, row_tile)
+    cluster = (0, None, 0)
     if s.ring:
         if max(sizes) > RING_MAX_WIDTH:
             raise ValueError(f"the population kernels take layers up to "
@@ -447,6 +557,11 @@ def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE):
         wflat, geom, stage = _ring_pack(
             s.layers, s.bf16, ring_stage_cap(row_tile, max(sizes)))
         ring = ((ctypes.c_int * (3 * len(geom)))(*sum(geom, ())), stage)
+    elif csize:
+        wflat, geom, stride = _cluster_pack(s.layers, csize)
+        ring = None
+        cluster = (csize, (ctypes.c_int * (2 * len(geom)))(*sum(geom, ())),
+                   stride)
     else:
         wflat = torch.cat([w.reshape(p, -1) for w, _ in s.layers], dim=1)
         ring = None
@@ -458,23 +573,25 @@ def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE):
         f(s.t_end - s.t0), f(s.rtol), f(s.atol), f(float(s.trips)),
         p1, p2, p3, p4, *s.gate)
     return (wflat.contiguous(), ring, bflat.contiguous(),
-            (ctypes.c_int * len(sizes))(*sizes), scal)
+            (ctypes.c_int * len(sizes))(*sizes), scal, cluster)
 
 
 def _trip_solve_cuda(s: _Setup):
     """Launch the cooperative trip kernel (csrc/fused_solve.cu) on the
     tensors' device and current stream; same outputs as the plain version.
-    A thread block owns up to MAX_ROW_TILE rows of one member (fewer with
-    ``q_split``; the result does not depend on the tiling).  Raises on a
-    refused launch; never synchronises."""
+    A thread block, or a cluster of blocks in the sweeps' cluster pass, owns
+    up to MAX_ROW_TILE rows of one member (fewer with ``q_split``; the
+    result does not depend on the tiling).  Raises on a refused launch;
+    never synchronises.  ``_trip_solve_cuda.last_pass`` says which layer
+    pass the sweep took, on how many clusters."""
     from ionflux_torch.ops._build import launch
 
     dev = s.vpad.device
     p, q = s.y0.shape[:2]
     row_tile = min(MAX_ROW_TILE, q // s.q_split)
-    wflat, ring, bflat, c_sizes, scal = _kernel_inputs(s, row_tile)
+    wflat, ring, bflat, c_sizes, scal, cluster = _kernel_inputs(s, row_tile)
     geom, stage = ring if ring else (None, 0)
-    grid = p * -(-q // row_tile)
+    grid = p * -(-q // row_tile)     # blocks, or clusters
     rec_sc = torch.empty((s.trips, 2), dtype=torch.float32, device=dev)
     rec_y = torch.empty((s.trips, p, q, 2), dtype=torch.float32, device=dev)
     rec_k = torch.empty((s.trips, 7, p, q, 2), dtype=torch.float32,
@@ -490,8 +607,13 @@ def _trip_solve_cuda(s: _Setup):
             n_out.data_ptr(), alive.data_ptr(), partial.data_ptr(), c_sizes,
             len(s.layers), p, q, s.vpad.shape[1], row_tile, s.trips,
             s.block, int(s.cull), int(bool(s.base_a)), scal, int(s.ring),
-            geom, stage, s.q_real)
+            geom, stage, s.q_real, *cluster)
+    if not s.ring:
+        _trip_solve_cuda.last_pass = _pass_info(cluster[0], grid)
     return rec_sc, rec_y, rec_k, n_out, alive.bool()
+
+
+_trip_solve_cuda.last_pass = None
 
 
 # ---------------------------------------------------------------------------
@@ -581,6 +703,7 @@ def _sweep(net, rgate, protos_v, ts, *, proto_t0, proto_dt, t_end, rtol,
     else:
         out = _trip_solve_cuda(s)
         fused_nnf_solve_ft.launches += 1
+        fused_nnf_solve_ft.last_pass = _trip_solve_cuda.last_pass
     rec_sc, rec_y, rec_k, n_out, alive = out
     return _dense_eval_ft(rec_sc, rec_y, rec_k, n_out[0], n_out[1], ts,
                           lane_ok=alive[0])
@@ -603,6 +726,7 @@ def fused_nnf_solve_ft(net, rgate: HHParams, protos_v: torch.Tensor,
 
 
 fused_nnf_solve_ft.launches = 0
+fused_nnf_solve_ft.last_pass = None   # the last launch's layer pass
 
 
 def fused_nnf_solve_ft_plain(net, rgate: HHParams, protos_v: torch.Tensor,
@@ -939,8 +1063,8 @@ def _while_solve_cuda(s: _Setup, max_steps: int):
 
     dev = s.vpad.device
     b = s.y0.shape[1]
-    wflat, _, bflat, c_sizes, scal = _kernel_inputs(s)
     row_tile = min(MAX_ROW_TILE, b)
+    wflat, _, bflat, c_sizes, scal, cluster = _kernel_inputs(s, row_tile)
     rec_sc = torch.empty((s.trips, 2), dtype=torch.float32, device=dev)
     rec_y = torch.empty((s.trips, 1, b, 2), dtype=torch.float32, device=dev)
     rec_k = torch.empty((s.trips, 7, 1, b, 2), dtype=torch.float32,
@@ -952,8 +1076,13 @@ def _while_solve_cuda(s: _Setup, max_steps: int):
             s.vpad.data_ptr(), wflat.data_ptr(), bflat.data_ptr(),
             rec_sc.data_ptr(), rec_y.data_ptr(), rec_k.data_ptr(),
             n_out.data_ptr(), partial.data_ptr(), c_sizes, len(s.layers), b,
-            s.vpad.shape[1], row_tile, s.trips, int(max_steps), scal)
+            s.vpad.shape[1], row_tile, s.trips, int(max_steps), scal,
+            *cluster)
+    _while_solve_cuda.last_pass = _pass_info(cluster[0], -(-b // row_tile))
     return rec_sc, rec_y, rec_k, n_out
+
+
+_while_solve_cuda.last_pass = None
 
 
 def _while(net, rgate, protos_v, ts, *, proto_t0, proto_dt, t_end, rtol,
@@ -967,6 +1096,7 @@ def _while(net, rgate, protos_v, ts, *, proto_t0, proto_dt, t_end, rtol,
     else:
         out = _while_solve_cuda(s, int(max_steps))
         fused_nnf_solve.launches += 1
+        fused_nnf_solve.last_pass = _while_solve_cuda.last_pass
     rec_sc, rec_y, rec_k, n_out = out
     return _dense_eval_popsweep_ft(rec_sc, rec_y, rec_k, n_out[0],
                                    n_out[0].abs(), ts)[0]
@@ -990,6 +1120,7 @@ def fused_nnf_solve(net, rgate: HHParams, protos_v: torch.Tensor,
 
 
 fused_nnf_solve.launches = 0
+fused_nnf_solve.last_pass = None      # the last launch's layer pass
 
 
 def fused_nnf_solve_plain(net, rgate: HHParams, protos_v: torch.Tensor,

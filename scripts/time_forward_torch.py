@@ -7,10 +7,14 @@ to compare two commits inside one run.
 ``--root`` names the checkout whose ``ionflux_torch`` is timed (default:
 this one); its kernels are built there at first use.  The weights, the
 protocols and chip_smoke.py's helpers come from this checkout.  The shapes
-are chip_smoke.py's phases (b), (c), (k) and (m), 4096 trips each:
+are chip_smoke.py's phases (b), (b'), (c), (k), (l) and (m), 4096 trips
+each unless named:
 
 - B2: the trained d1 sweep over the activation family (B = 7, 80,001
-  knots, rtol 1e-6);
+  knots, rtol 1e-6), and at (b')'s B = 40 (1 s of activation steps at 0.1
+  ms knots, 512 trips);
+- B6: the while-loop sweep of d1 at (l) (B2's shape, max_rec 16384;
+  executed steps in place of trips);
 - B1: 64 perturbed d1 members over the deactivation family (9 rows padded
   to 16, 100,001 knots), and the first 32 of them (the same work per block
   on half the grid, with half the weights in the L2);
@@ -101,10 +105,20 @@ def main(root: str, reps: int) -> dict:
                                  float(ts_d[-1]), 1e-5, 1e-7, C.TRIPS, None,
                                  None, True, bf16, 1)
 
+    v40 = torch.full((C.B40, 10001), -80.0, device=dev)
+    v40[:, 1000:] = torch.linspace(-60.0, 60.0, C.B40, device=dev)[:, None]
+    ts40 = torch.arange(0, 10001, 10, device=dev).float() * 0.1
     setups = {
         "B2 sweep": F._sweep_setup(
             d1.net, d1.rgate, b_a.v, ts_a, 0.0, 0.1, float(ts_a[-1]), 1e-6,
             1e-8, C.TRIPS, None),
+        "B2 sweep B=40": F._sweep_setup(
+            d1.net, d1.rgate, v40, ts40, 0.0, 0.1, 1000.0,
+            C.B40_TOL["rtol"], C.B40_TOL["atol"], C.B40_TRIPS, None),
+        "B6 while sweep (l)": F._sweep_setup(
+            d1.net, d1.rgate, b_a.v, ts_a, 0.0, 0.1, float(ts_a[-1]),
+            C.WHILE["rtol"], C.WHILE["atol"], C.WHILE["max_rec"], None,
+            block=1),
         "B1 popsweep": popsweep(pop.net, pop.rgate, False),
         "B1 popsweep P=32": popsweep(pop32, pop.rgate, False),
         "B1 popsweep bf16 (m)": popsweep(popw.net, popw.rgate, True),
@@ -113,11 +127,17 @@ def main(root: str, reps: int) -> dict:
             float(ts_20[-1]), 1e-5, 1e-7, C.TRIPS)}
     kernel = {}
     for name, s in setups.items():
-        ms, out = C.cuda_ms(lambda s=s: F._trip_solve_cuda(s), reps)
-        n_valid = int(out[3][1])
+        if name.startswith("B6"):
+            # n_out = (n_acc, steps taken); only accepted steps are recorded
+            ms, out = C.cuda_ms(lambda s=s: F._while_solve_cuda(
+                s, C.WHILE["max_steps"]), reps)
+            n_valid, n_rec = int(out[3][1]), abs(int(out[3][0]))
+        else:
+            ms, out = C.cuda_ms(lambda s=s: F._trip_solve_cuda(s), reps)
+            n_valid = n_rec = int(out[3][1])
         digest = hashlib.sha256()
         for rec in out[:3]:
-            digest.update(rec[:n_valid].cpu().numpy().tobytes())
+            digest.update(rec[:n_rec].cpu().numpy().tobytes())
         kernel[name] = {"ms": ms, "n_acc": int(out[3][0]),
                         "n_valid": n_valid, "ms_per_trip": ms / n_valid,
                         "records_sha256": digest.hexdigest()[:16]}

@@ -61,6 +61,7 @@ def test_port_imports_neither_jax_nor_ionflux():
         "sys.path.insert(0, 'scripts')\n"
         "import train_d0_torch, probe_mosaic_bias_fault_torch\n"
         "import time_forward_torch, probe_ring_pass_torch\n"
+        "import probe_cluster_launch_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ionflux'))\n"
         "assert not bad, bad\n"
@@ -480,3 +481,130 @@ def test_ring_pass_copies_padded_rows_bit_for_bit_on_card(card, q, mode):
     for a, b in zip(real[:3], every[:3]):
         assert torch.equal(a[:n], b[:n])
     assert torch.equal(real[4], every[4])
+
+
+# The sweeps' layer passes (B2, B6): the cluster pass (weights in a
+# cluster's shared memory, DSMEM exchange) against mlp() on the same inputs,
+# bit for bit, across one to four clusters; and mlp() where the size rule
+# keeps it.
+
+D1_SIZES = (2, 200, 200, 200, 200, 200, 200, 1)
+
+
+def _tame(net, gain=0.5):
+    """A random net with its weights scaled by ``gain``: at widths of 200
+    and more, _net's 0.1 N(0, 1) weights grow each layer's activations
+    (0.1 sqrt(200) > 1) into nets whose solves are stiff or chaotic."""
+    return [(w * gain, b) for w, b in net]
+
+
+def _sweep_case(card, b, sizes, base, die):
+    """A sweep setup of b rows on a random net; with ``die``, the last row's
+    voltage is NaN, so its first stage is and it dies alone at the start
+    (a lane that fails only later is held back by the f32 clock: near a
+    bad knot its steps shrink until t + h rounds to t, and they pass)."""
+    net = _tame(_net(seed=b, sizes=sizes, device=card))
+    v = _protos(_levels(b), device=card)
+    if die:
+        v[-1] = float("nan")
+    ts = torch.arange(50.0, 8000.0, 100.0, device=card)
+    kw = dict(proto_dt=1.0, trips=2048, base_hh=TR.HH_B06 if base else None)
+    s = TK._sweep_setup(net, TR.HH_B06, v, ts, 0.0, 1.0, None, 1e-5, 1e-7,
+                        2048, kw["base_hh"])
+    return net, v, ts, kw, s
+
+
+def _same_records(out_a, out_b, n):
+    """The first n records of two launches, bit for bit (a dead lane's
+    records hold NaN, which torch.equal never finds equal)."""
+    for a, b in zip(out_a[:3], out_b[:3]):
+        assert torch.equal(a[:n].view(torch.int32), b[:n].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [D1_SIZES, (2, 37, 130, 64, 1)],
+                         ids=["d1", "2x37x130x64x1"])
+@pytest.mark.parametrize("base", [None, "nnd"])
+@pytest.mark.parametrize("b", [1, 7, 32, 33, 128])
+def test_sweep_cluster_pass_equals_mlp_on_card(card, b, base, sizes):
+    """B2 through the cluster pass (the size rule's choice) and through
+    mlp() gives bit-identical records, n_out and alive at one to four
+    clusters, in NN-f and NN-d, with one lane that dies alone; the entry
+    point's result is within CARD_TOL of the plain version.  The second net
+    makes an odd number of exchanges per evaluation (uneven slices too)."""
+    import dataclasses
+
+    net, v, ts, kw, s = _sweep_case(card, b, sizes, base, die=b > 1)
+    clus = TK._trip_solve_cuda(s)
+    assert TK._trip_solve_cuda.last_pass == dict(
+        layer_pass="cluster", cluster_size=TK.CLUSTER_SIZE,
+        clusters=-(-b // 32))
+    glob = TK._trip_solve_cuda(dataclasses.replace(s, cluster=0))
+    assert TK._trip_solve_cuda.last_pass["layer_pass"] == "mlp"
+    n = int(clus[3][1])
+    assert torch.equal(clus[3], glob[3]) and int(clus[3][0]) > 0
+    _same_records(clus, glob, n)
+    assert torch.equal(clus[4], glob[4])
+    assert bool(clus[4][0, :-1].all()) and bool(clus[4][0, -1]) == (b == 1)
+    before = TK.fused_nnf_solve_ft.launches
+    ys_k = TK.fused_nnf_solve_ft(net, TR.HH_B06, v, ts, **kw)
+    torch.cuda.synchronize()
+    assert TK.fused_nnf_solve_ft.launches == before + 1
+    assert TK.fused_nnf_solve_ft.last_pass["layer_pass"] == "cluster"
+    ys_p = TK.fused_nnf_solve_ft_plain(net, TR.HH_B06, v, ts, **kw)
+    _close_on_card(ys_k, ys_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [7, 40])
+def test_while_cluster_pass_equals_mlp_on_card(card, b):
+    """B6 through the cluster pass and through mlp(): bit-identical records
+    and n_out, on one and on two clusters; within CARD_TOL of plain."""
+    import dataclasses
+
+    net = _tame(_net(seed=b, sizes=D1_SIZES, device=card))
+    v = _protos(_levels(b), device=card)
+    ts = torch.arange(50.0, 8000.0, 100.0, device=card)
+    s = TK._sweep_setup(net, TR.HH_B06, v, ts, 0.0, 1.0, None, 1e-5, 1e-7,
+                        4096, None, block=1)
+    clus = TK._while_solve_cuda(s, 100_000)
+    assert TK._while_solve_cuda.last_pass == dict(
+        layer_pass="cluster", cluster_size=TK.CLUSTER_SIZE,
+        clusters=-(-b // 32))
+    glob = TK._while_solve_cuda(dataclasses.replace(s, cluster=0), 100_000)
+    assert torch.equal(clus[3], glob[3]) and int(clus[3][0]) > 0
+    _same_records(clus, glob, int(clus[3][0]))
+    ys_k = TK.fused_nnf_solve(net, TR.HH_B06, v, ts, proto_dt=1.0)
+    assert TK.fused_nnf_solve.last_pass["layer_pass"] == "cluster"
+    ys_p = TK.fused_nnf_solve_plain(net, TR.HH_B06, v, ts, proto_dt=1.0)
+    assert bool(torch.isfinite(ys_p).all())
+    _close_on_card(ys_k, ys_p)
+
+
+@pytest.mark.cuda
+def test_sweep_keeps_mlp_for_a_net_too_large_for_a_cluster_on_card(card):
+    """A 5 x 512 net (5.2 MB) takes mlp() by the size rule, in B2 and in
+    B6, and matches the plain version; the cluster pass at C = 16 (the
+    non-portable size) gives the same records as at C = 8 on d1."""
+    import dataclasses
+
+    net = _tame(_net(seed=5, sizes=(2, 512, 512, 512, 512, 512, 1),
+                     device=card), 0.25)
+    v = _protos((-40.0, 20.0), device=card)
+    ts = torch.arange(50.0, 8000.0, 100.0, device=card)
+    ys_k = TK.fused_nnf_solve_ft(net, TR.HH_B06, v, ts, proto_dt=1.0,
+                                 trips=2048)
+    assert TK.fused_nnf_solve_ft.last_pass == dict(
+        layer_pass="mlp", cluster_size=0, clusters=0)
+    _close_on_card(ys_k, TK.fused_nnf_solve_ft_plain(
+        net, TR.HH_B06, v, ts, proto_dt=1.0, trips=2048))
+    ys_k = TK.fused_nnf_solve(net, TR.HH_B06, v, ts, proto_dt=1.0)
+    assert TK.fused_nnf_solve.last_pass["layer_pass"] == "mlp"
+    _close_on_card(ys_k, TK.fused_nnf_solve_plain(net, TR.HH_B06, v, ts,
+                                                  proto_dt=1.0))
+    *_, s = _sweep_case(card, 33, D1_SIZES, None, die=True)
+    c8 = TK._trip_solve_cuda(dataclasses.replace(s, cluster=8))
+    c16 = TK._trip_solve_cuda(dataclasses.replace(s, cluster=16))
+    assert TK._trip_solve_cuda.last_pass["cluster_size"] == 16
+    assert torch.equal(c8[3], c16[3]) and torch.equal(c8[4], c16[4])
+    _same_records(c8, c16, int(c8[3][1]))

@@ -179,16 +179,21 @@ def _setup(entry, sizes, members=2, q=3):
                                         ("popsweep", True), ("bf16", True)])
 def test_entry_point_picks_the_layer_pass(entry, ring):
     """The popsweep (f32 and bf16) and the population solve take the ring
-    pass, the sweep keeps its own, whatever P is; the kernel inputs follow."""
+    pass, whatever P is; the sweep its own (the cluster pass, where the net
+    fits a cluster: tests/test_torch_cluster.py); the kernel inputs
+    follow."""
     s = _setup(entry, (2, 16, 16, 1))
     assert s.ring is ring
-    wflat, geom, _, sizes, _ = TK._kernel_inputs(s)
+    wflat, geom, _, sizes, _, cluster = TK._kernel_inputs(s)
     assert list(sizes) == [2, 16, 16, 1]
     if ring:
         packed, _, _ = TK._ring_pack(s.layers, s.bf16)
         assert torch.equal(wflat, packed) and geom is not None
+        assert cluster == (0, None, 0)
     else:
-        assert geom is None and wflat.shape[1] == 2 * 16 + 16 * 16 + 16
+        packed, _, _ = TK._cluster_pack(s.layers, TK.CLUSTER_SIZE)
+        assert geom is None and torch.equal(wflat, packed)
+        assert cluster[0] == TK.CLUSTER_SIZE
 
 
 def test_ring_pass_refuses_wider_layers():
