@@ -34,11 +34,14 @@ before it and read just after:
       knots) and Pr5 (9 x 103,225 knots) by the chained adaptive solve, the
       seed-0 noise, the [::10] lattice;
   (g) one objective evaluation at the CMA-ES default population (8): 16
-      chained launches of the HH-population kernel; its SSE against an
-      independent ``odeint_chained`` evaluation of the same member (1e-3
-      relative);
-  (h) five CMA-ES generations (5 x 16 more launches), and a profiler trace
-      of one more evaluation: the kernel's share of a generation;
+      chained launches of the HH-population kernel, eager, after which the
+      objective captures them, their dense output and the SSE as one CUDA
+      graph (the capture counts no launch); its SSE against an independent
+      ``odeint_chained`` evaluation of the same member (1e-3 relative);
+  (h) five CMA-ES generations, each one replay of that graph (5 x 16 more
+      launches), the replayed SSE against the eager ``device_fn`` bit for
+      bit, and a profiler trace of one more evaluation: the kernel's share
+      of a generation;
   then, still counted, the fitted candidates on the first Pr3 sweep by the
   RK4 kernel against the adaptive kernel (2e-3), and 64 perturbed d1 members
   on one activation protocol through the population solve;
@@ -68,10 +71,16 @@ after:
   currents' range at tests/test_pallas.py's 1 x 16 shape) and the bf16
   kernel on (c)'s d1 members (logged); (n) kernel vs plain and bias vs fold
   within 1e-5; times and bounds.
+  (o) the ring pass of the popsweep (f32 and bf16) and of the population
+      solve on 4 members of the registry's 500-wide architecture (s07),
+      kernel vs plain within 5e-3 (comparisons only);
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
 Every row of the kernel table names its layer pass (``layer_pass``).  The
+HH trip kernel's row carries its executed trips, ms per executed trip (also
+at the fit's 8 lanes), design and helper threads per lane; the RK4 kernel's its
+microseconds per substep, design and lanes per block.  The
 rows of the three launches that take the ring layer pass (the popsweep in
 f32 and in bf16, the population solve) also carry their executed trips
 (``n_valid``), the milliseconds per executed trip and the pass's design;
@@ -239,6 +248,14 @@ def trip_bound(n_valid: int, lanes: int, rhs_ops: int, in_bytes: int,
 # shared memory (mma.sync in bf16); csrc/fused_solve.cu says more.
 RING_DESIGN = "pr4-bulk-copy-ring-3x64KB+mma.sync-bf16"
 NO_PASS = "none (no MLP)"   # the HH kernels' and the probe's rows
+# The HH kernels' designs (csrc/hh_solve.cu): the trip kernel's chain warps
+# (one thread per lane's dependent chain and the controller) and helper
+# warps (the rates off the chain, the records), two named barriers a trip;
+# RK4's producer warps feeding one consumer thread per lane through an
+# mbarrier ring, lanes spread over blocks
+HH_TRIP_DESIGN = "chain-warps+helper-warps"
+HH_RK4_DESIGN = "producer-warps+mbarrier-ring"
+WIDE_SIZES = (2, 500, 500, 1)   # the registry's s07 architecture
 
 
 def ring_fields(n_valid: int, ms: float) -> dict:
@@ -642,6 +659,17 @@ def d0_path(dev, rows) -> None:
         raise RuntimeError("population solve: misshapen or non-finite")
     launches = {n: k.launches for n, k in kernels.items()}
     check_counts("d0 path", launches)
+    # (h) the objective's graph against its eager device_fn, bit for bit
+    # (comparison launches, after the path's counts were read)
+    f_graph = objective(asked[-1])
+    f_eager = objective.device_fn(torch.tensor(asked[-1], dtype=f32,
+                                               device=dev))
+    f_eager = f_eager.cpu().numpy().astype(np.float64)
+    log(f"(h) last generation: graph replay SSE {f_graph.tolist()}; "
+        f"{'bit-identical to' if np.array_equal(f_graph, f_eager) else 'DIFFERS from'}"
+        f" the eager device_fn")
+    if not np.array_equal(f_graph, f_eager):
+        raise RuntimeError("the objective's CUDA graph and device_fn differ")
 
     # ---- (i) HH-population kernel vs plain at 128 lanes --------------------
     base = np.array([float(x) for x in HH_B06])
@@ -675,6 +703,7 @@ def d0_path(dev, rows) -> None:
     err3, ms_k, ms_p, n_k, _, _, ys = hh_pair(
         "(i) HH pop B=128, Pr3 sweep 0", pop128, protos3.v[0], lat3,
         period3 * dt, None, HH_TRIPS, 3)
+    layout128 = H.fused_hh_pop_solve_ft.last_layout
     y_carry = ys[0][:, -1, :].contiguous()
     in_bytes = (protos3.v[0].numel() + pop128.numel() + 2 * 128) * 4
     b_ms, b_by = trip_bound(n_k[1], 128, HH_RHS_OPS, in_bytes)
@@ -685,9 +714,12 @@ def d0_path(dev, rows) -> None:
                        pop128, protos5.v[0], lat5, period5 * dt, y_carry,
                        2 * HH_TRIPS, 1)
     # the shape the fit gives the kernel: 8 lanes, the last generation
-    err8, ms8, *_ = hh_pair("(i) HH pop B=8 (the fit's last generation)",
-                            last8, protos3.v[0], lat3, period3 * dt, None,
-                            HH_TRIPS, 3)
+    err8, ms8, _, n8, *_ = hh_pair(
+        "(i) HH pop B=8 (the fit's last generation)", last8, protos3.v[0],
+        lat3, period3 * dt, None, HH_TRIPS, 3)
+    layout8 = H.fused_hh_pop_solve_ft.last_layout
+    log(f"(i) trip kernel layouts as launched: B=128 {layout128}, B=8 "
+        f"{layout8}")
     # a stiff lane (p2 = 1.0: k1 ~ e^20 at the +20 mV test step of Pr3 sweep
     # 4) pins the shared step; it must die alone, in both versions
     stiff = pop128.clone()
@@ -712,17 +744,22 @@ def d0_path(dev, rows) -> None:
         replaces="ionflux/ops/pallas_solve.py:1015",
         launches=launches["fused_hh_pop_solve_ft"],
         max_abs_err=max(err3, err5, err8, errs), ms=ms_k, plain_ms=ms_p,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, ms_at_8_lanes=ms8,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, n_valid=n_k[1],
+        ms_per_trip=ms_k / n_k[1], ms_at_8_lanes=ms8,
+        ms_per_trip_at_8_lanes=ms8 / n8[1], design=HH_TRIP_DESIGN,
+        helpers_per_lane=layout128["group"],
+        helpers_per_lane_at_8=layout8["group"],
         layer_pass=NO_PASS))
 
     # ---- (j) RK4 kernel vs the adaptive kernel and vs plain ----------------
     rk = dict(proto_dt=dt, dt_out=1.0, n_sub=10)
     ms_k, ys_rk = cuda_ms(lambda: H.fused_hh_rk4(
         pop128, protos3.v[0], n_out=n_out, **rk), reps=3)
+    rk4_layout = H.fused_hh_rk4.last_layout
     ys_ad = hh_pop(pop128, protos3.v[0], ts_ms, proto_dt=dt, **ORACLE)
     d_rk = float((ys_rk - ys_ad).abs().max())
-    log(f"(j) RK4 B=128, {(n_out - 1) * 10} substeps: kernel {ms_k:.3f} ms; "
-        f"vs adaptive kernel max |dy| = {d_rk:.3e} (tol {RK4_TOL})")
+    log(f"(j) RK4 B=128, {(n_out - 1) * 10} substeps, layout {rk4_layout}: "
+        f"kernel {ms_k:.3f} ms; vs adaptive kernel max |dy| = {d_rk:.3e} (tol {RK4_TOL})")
     if not d_rk <= RK4_TOL:
         raise RuntimeError(f"RK4 vs adaptive {d_rk} > {RK4_TOL}")
     # the plain version is one host-paced chain per substep: hold it on the
@@ -761,6 +798,8 @@ def d0_path(dev, rows) -> None:
         launches=launches["fused_hh_rk4"], max_abs_err=err, ms=ms_k,
         plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         plain_ms_covers=f"{n_win - 1} of {n_out - 1} output intervals",
+        us_per_substep=ms_k * 1e3 / substeps, design=HH_RK4_DESIGN,
+        lanes_per_block=rk4_layout["lanes_per_block"],
         layer_pass=NO_PASS))
 
     # ---- (k) population solve (Q = 1 case of the trip kernel) vs plain -----
@@ -786,6 +825,45 @@ def d0_path(dev, rows) -> None:
         launches=launches["fused_nnf_pop_solve_ft"], max_abs_err=err,
         ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, **ring_fields(n_k[1], ms_k)))
+
+
+def wide_check(dev) -> None:
+    """(o) The population launches' ring pass at the registry's 500-wide
+    architecture (s07), wider than one pass of its threads: 4 members
+    with weights 0.1 sqrt(16 / 500) N(0, 1) and biases 0.01 N(0, 1)
+    (``RandomState(5)``), the popsweep in f32 and in bf16 on 9 activation steps at 1 ms knots and
+    the population solve on one; kernel against plain within 5e-3 on the
+    gates.  Comparisons only: no path of the port sends such a net."""
+    from ionflux_torch import protocols as P
+    from ionflux_torch.models.registry import HH_B06
+    from ionflux_torch.ops import fused_solve as F
+
+    rs = np.random.RandomState(5)
+    nets = [(torch.tensor((0.1 * (16 / 500) ** 0.5) * rs.randn(4, a, b),
+                          dtype=torch.float32, device=dev),
+             torch.tensor(0.01 * rs.randn(4, b), dtype=torch.float32,
+                          device=dev))
+            for a, b in zip(WIDE_SIZES[:-1], WIDE_SIZES[1:])]
+    levels = [float(x) for x in np.linspace(-60.0, 40.0, 9)]
+    v9 = P.stack([P.activation_protocol(x, 1.0, device=dev)
+                  for x in levels]).v
+    v1 = P.activation_protocol(20.0, 1.0, device=dev).v
+    ts = torch.arange(50.0, 8000.0, 100.0, device=dev)
+    kw = dict(proto_dt=1.0, trips=2048)
+    for name, kern, plain, v, extra in (
+            ("popsweep f32", F.fused_nnf_popsweep_solve_ft,
+             F.fused_nnf_popsweep_solve_ft_plain, v9, {}),
+            ("popsweep bf16", F.fused_nnf_popsweep_solve_ft,
+             F.fused_nnf_popsweep_solve_ft_plain, v9, {"mxu_bf16": True}),
+            ("population solve", F.fused_nnf_pop_solve_ft,
+             F.fused_nnf_pop_solve_ft_plain, v1, {})):
+        ys_k = kern(nets, HH_B06, v, ts, **kw, **extra)
+        torch.cuda.synchronize()
+        info = F._trip_solve_cuda.last_pass
+        gate_diff(f"(o) {name}, 4 members of {'x'.join(map(str, WIDE_SIZES))}"
+                  f" (ring pass, {info['row_tile']}-row tiles, "
+                  f"{info['column_passes']} column pass(es))", ys_k,
+                  plain(nets, HH_B06, v, ts, **kw, **extra))
 
 
 def accepted_trips(rec_sc: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -1069,6 +1147,7 @@ def main() -> int:
     while_probe_path(dev, rows, fwd)
     log(f"while/bf16/probe path done at {time.perf_counter() - t_start:.0f} "
         f"s")
+    wide_check(dev)
     d0_path(dev, rows)
     log(f"d0 path done at {time.perf_counter() - t_start:.0f} s")
 

@@ -115,6 +115,13 @@
 //     after the product, the layer input rounded to bf16 where it is written
 //     (the reference's mxu_bf16 semantics).  k is zero-padded to 16 in the
 //     weights and in the activations.
+//   * Any width the block's shared memory holds: the threads cover 256
+//     columns of a layer per pass over a chunk; a wider layer takes several
+//     passes, each parking its running sums in the output buffer between
+//     chunks, so every sum runs in the same order as in registers.  The
+//     wrapper's size rule (ops/fused_solve.py::ring_row_tile) picks the row
+//     tile whose stages and activation buffers fit (500-wide nets keep 32
+//     rows).
 //
 // What bounds B1 and B4 on this card: per trip each block streams its
 // member's weights six times (6 x 0.8 MB f32, 6 x 0.45 MB bf16).  At P = 64
@@ -495,81 +502,197 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The k-sum of one f32 thread tile over kn k-rows of a chunk: acc[r][c] +=
+// x[row r][k] * w[k][col c], k in order, from the tile's first input row xp
+// (k-major, row stride RTS) and first weight column wp (row stride ldw)
+template <int RTS, int TR>
+__device__ __forceinline__ void tile_f32(const float* xp, const float* wp,
+                                         int kn, int ldw,
+                                         float (&acc)[TR][4]) {
+#pragma unroll 8
+  for (int kk = 0; kk < kn; ++kk) {
+    const float4 wv = *reinterpret_cast<const float4*>(wp + kk * ldw);
+    float x[TR];
+    load_rows<TR>(xp + kk * RTS, x);
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      acc[r][0] = fmaf(x[r], wv.x, acc[r][0]);
+      acc[r][1] = fmaf(x[r], wv.y, acc[r][1]);
+      acc[r][2] = fmaf(x[r], wv.z, acc[r][2]);
+      acc[r][3] = fmaf(x[r], wv.w, acc[r][3]);
+    }
+  }
+}
+
 // One layer of the f32 ring pass: [RT, din] (k-major in src) x [din, dout]
-// + bias into dst.  Thread task t = tid + 256 i owns rows tr*TR.. and columns
-// cg*4..; every output's sum runs k = 0..din-1 in order.
+// + bias into dst.  Thread task t owns rows tr*TR.. and columns cg*4..;
+// every output's sum runs k = 0..din-1 in order.  A pass over a chunk
+// covers NT * kThreads tasks (256 columns; 1,024 at RT = 1); a wider layer takes
+// several passes over each chunk, each task's running sums parked in dst
+// between chunks (stored and reloaded as they are, so the sum is the same
+// fmaf chain as in registers).
 template <int RT>
 __device__ void ring_layer_f32(const Args& a, const float* wm, Ring& rg,
                                int l, const float* B, const float* src,
                                float* dst, bool last) {
   constexpr int RTS = ring_rts<RT>(), TR = ring_tr<RT>();
-  // tiles per thread: RT / TR row groups x up to 64 column groups (the
-  // wrapper refuses layers wider than 256)
+  // tiles per thread and pass: RT / TR row groups x 64 column groups
   constexpr int NT = (RT / TR * 64 + kThreads - 1) / kThreads;
   const int din = a.sizes[l], dout = a.sizes[l + 1];
   const int ncg = round_up(dout, 4) / 4, kc = a.ring_kc[l];
-  int tr[NT], cg[NT];
-  bool on[NT];
-  float acc[NT][TR][4];
+  const int ldw = ncg * 4;
+  const int passes = (RT / TR * ncg + NT * kThreads - 1) / (NT * kThreads);
+  if (passes == 1) {
+    int tr[NT], cg[NT];
+    bool on[NT];
+    float acc[NT][TR][4];
 #pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    const int t = threadIdx.x + i * kThreads;
-    tr[i] = t / ncg;
-    cg[i] = t - tr[i] * ncg;
-    on[i] = tr[i] * TR < rg.rows;
+    for (int i = 0; i < NT; ++i) {
+      const int t = threadIdx.x + i * kThreads;
+      tr[i] = t / ncg;
+      cg[i] = t - tr[i] * ncg;
+      on[i] = tr[i] * TR < rg.rows;
 #pragma unroll
-    for (int r = 0; r < TR; ++r)
+      for (int r = 0; r < TR; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][r][c] = 0.f;
-  }
-  for (int c = 0; c < a.ring_nch[l]; ++c) {
-    const float* w =
-        reinterpret_cast<const float*>(ring_acquire<float>(a, wm, rg));
-    const int k0 = c * kc, kn = min(kc, din - k0), ldw = ncg * 4;
+        for (int c = 0; c < 4; ++c) acc[i][r][c] = 0.f;
+    }
+    for (int c = 0; c < a.ring_nch[l]; ++c) {
+      const float* w =
+          reinterpret_cast<const float*>(ring_acquire<float>(a, wm, rg));
+      const int k0 = c * kc, kn = min(kc, din - k0);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        if (!on[i]) continue;
+        tile_f32<RTS, TR>(src + k0 * RTS + tr[i] * TR, w + cg[i] * 4, kn,
+                          ldw, acc[i]);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
       if (!on[i]) continue;
-      const float* xp = src + k0 * RTS + tr[i] * TR;
-      const float* wp = w + cg[i] * 4;
-#pragma unroll 8
-      for (int kk = 0; kk < kn; ++kk) {
-        const float4 wv = *reinterpret_cast<const float4*>(wp + kk * ldw);
-        float x[TR];
-        load_rows<TR>(xp + kk * RTS, x);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = cg[i] * 4 + c;
+        if (j >= dout) continue;
+        const float bj = __ldg(B + j);
 #pragma unroll
         for (int r = 0; r < TR; ++r) {
-          acc[i][r][0] = fmaf(x[r], wv.x, acc[i][r][0]);
-          acc[i][r][1] = fmaf(x[r], wv.y, acc[i][r][1]);
-          acc[i][r][2] = fmaf(x[r], wv.z, acc[i][r][2]);
-          acc[i][r][3] = fmaf(x[r], wv.w, acc[i][r][3]);
+          float x = acc[i][r][c] + bj;
+          if (!last) x = leaky(x);
+          dst[j * RTS + tr[i] * TR + r] = x;
+        }
+      }
+    }
+    return;
+  }
+  // wider than 256 columns: the running sums of column j, row r wait in
+  // dst[j * RTS + r] (round4(dout) <= round16(wmax) columns fit it); only
+  // the thread that owns a task touches its slots
+  for (int c = 0; c < a.ring_nch[l]; ++c) {
+    const float* w =
+        reinterpret_cast<const float*>(ring_acquire<float>(a, wm, rg));
+    const int k0 = c * kc, kn = min(kc, din - k0);
+    for (int ps = 0; ps < passes; ++ps) {
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const int t = threadIdx.x + (ps * NT + i) * kThreads;
+        const int tr = t / ncg, cg = t - tr * ncg;
+        if (tr * TR >= rg.rows) continue;
+        float* slot = dst + cg * 4 * RTS + tr * TR;
+        float acc[TR][4];
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[r][q] = c == 0 ? 0.f : slot[q * RTS + r];
+        tile_f32<RTS, TR>(src + k0 * RTS + tr * TR, w + cg * 4, kn, ldw,
+                          acc);
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) slot[q * RTS + r] = acc[r][q];
+      }
+    }
+  }
+  for (int ps = 0; ps < passes; ++ps) {
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int t = threadIdx.x + (ps * NT + i) * kThreads;
+      const int tr = t / ncg, cg = t - tr * ncg;
+      if (tr * TR >= rg.rows) continue;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = cg * 4 + q;
+        if (j >= dout) continue;
+        const float bj = __ldg(B + j);
+#pragma unroll
+        for (int r = 0; r < TR; ++r) {
+          float x = dst[j * RTS + tr * TR + r] + bj;
+          if (!last) x = leaky(x);
+          dst[j * RTS + tr * TR + r] = x;
         }
       }
     }
   }
+}
+
+// The mma k-steps of one chunk of the bf16 ring pass for the n-tiles
+// warp + 8 (i0 + i), i < 4, of every row tile: A from the block's rows in
+// src (bf16-rounded f32, k-major), B from the chunk's [n, kcc + 8] slices
+template <int RT>
+__device__ __forceinline__ void mma_chunk(const float* src,
+                                          const __nv_bfloat16* w, int k0,
+                                          int kcc, int rows, int nt, int i0,
+                                          float (&acc)[RT > 16 ? 2 : 1][4][4]) {
+  constexpr int RTS = ring_rts<RT>(), MT = RT > 16 ? 2 : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int sst = kcc + 8, steps = kcc / 16;
+  for (int s = 0; s < steps; ++s) {
+    const int kb = k0 + s * 16 + 2 * t;
+    uint32_t af[MT][4];
 #pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    if (!on[i]) continue;
+    for (int m = 0; m < MT; ++m) {
+      if (m * 16 >= rows) break;
+      const int r0 = m * 16 + g, r1 = r0 + 8;
+      const float* x0 = src + kb * RTS;
+      const float* x8 = src + (kb + 8) * RTS;
+      af[m][0] = bf16x2(x0[r0], x0[RTS + r0]);
+      af[m][1] = r1 < RT ? bf16x2(x0[r1], x0[RTS + r1]) : 0u;
+      af[m][2] = bf16x2(x8[r0], x8[RTS + r0]);
+      af[m][3] = r1 < RT ? bf16x2(x8[r1], x8[RTS + r1]) : 0u;
+    }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = cg[i] * 4 + c;
-      if (j >= dout) continue;
-      const float bj = __ldg(B + j);
+    for (int i = 0; i < 4; ++i) {
+      const int n = warp + 8 * (i0 + i);
+      if (n >= nt) continue;
+      const __nv_bfloat16* wr = w + (n * 8 + g) * sst + s * 16 + 2 * t;
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wr);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wr + 8);
 #pragma unroll
-      for (int r = 0; r < TR; ++r) {
-        float x = acc[i][r][c] + bj;
-        if (!last) x = leaky(x);
-        dst[j * RTS + tr[i] * TR + r] = x;
-      }
+      for (int m = 0; m < MT; ++m)
+        if (m * 16 < rows)
+          asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+f"(acc[m][i][0]), "+f"(acc[m][i][1]), "+f"(acc[m][i][2]),
+              "+f"(acc[m][i][3])
+            : "r"(af[m][0]), "r"(af[m][1]), "r"(af[m][2]), "r"(af[m][3]),
+              "r"(b0), "r"(b1));
     }
   }
 }
 
 // One layer of the bf16 ring pass on the tensor cores: mma.sync m16n8k16,
 // A = the block's rows (MT tiles of 16; rows past RT read as 0; tiles past
-// rg.rows skipped), B = the
-// packed transposed weights.  Warp w owns the n-tiles w, w + 8, ... of every
-// row tile.  Writes the bf16-rounded inputs of the next layer, zero in the
-// k padding up to a multiple of 16.
+// rg.rows skipped), B = the packed transposed weights.  In a pass over a
+// chunk warp w owns the n-tiles w, w + 8, ..., w + 24 (256 columns); a
+// wider layer takes several passes over each chunk, the accumulators parked
+// in dst between chunks (stored and reloaded as they are: the mma's f32
+// sums continue unchanged).  Writes the bf16-rounded inputs of the next
+// layer, zero in the k padding up to a multiple of 16.
 template <int RT>
 __device__ void ring_layer_bf16(const Args& a, const __nv_bfloat16* wm,
                                 Ring& rg, int l, const float* B,
@@ -577,6 +700,7 @@ __device__ void ring_layer_bf16(const Args& a, const __nv_bfloat16* wm,
   constexpr int RTS = ring_rts<RT>(), MT = RT > 16 ? 2 : 1;
   const int dout = a.sizes[l + 1], kc = a.ring_kc[l];
   const int din16 = round_up(a.sizes[l], 16), nt = round_up(dout, 8) / 8;
+  const int passes = (nt + 31) / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   float acc[MT][4][4];
@@ -590,57 +714,62 @@ __device__ void ring_layer_bf16(const Args& a, const __nv_bfloat16* wm,
     const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(
         ring_acquire<__nv_bfloat16>(a, wm, rg));
     const int k0 = c * kc, kcc = min(kc, din16 - k0);
-    const int sst = kcc + 8, steps = kcc / 16;
-    for (int s = 0; s < steps; ++s) {
-      const int kb = k0 + s * 16 + 2 * t;
-      uint32_t af[MT][4];
+    if (passes == 1) {
+      mma_chunk<RT>(src, w, k0, kcc, rg.rows, nt, 0, acc);
+      continue;
+    }
+    for (int ps = 0; ps < passes; ++ps) {
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m * 16 >= rg.rows) break;
-        const int r0 = m * 16 + g, r1 = r0 + 8;
-        const float* x0 = src + kb * RTS;
-        const float* x8 = src + (kb + 8) * RTS;
-        af[m][0] = bf16x2(x0[r0], x0[RTS + r0]);
-        af[m][1] = r1 < RT ? bf16x2(x0[r1], x0[RTS + r1]) : 0u;
-        af[m][2] = bf16x2(x8[r0], x8[RTS + r0]);
-        af[m][3] = r1 < RT ? bf16x2(x8[r1], x8[RTS + r1]) : 0u;
-      }
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = m * 16 + g + (e >> 1) * 8;
+            const int j = (warp + 8 * (4 * ps + i)) * 8 + 2 * t + (e & 1);
+            acc[m][i][e] = c > 0 && r < rg.rows && j < dout
+                               ? dst[j * RTS + r] : 0.f;
+          }
+      mma_chunk<RT>(src, w, k0, kcc, rg.rows, nt, 4 * ps, acc);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = m * 16 + g + (e >> 1) * 8;
+            const int j = (warp + 8 * (4 * ps + i)) * 8 + 2 * t + (e & 1);
+            if (r < rg.rows && j < dout) dst[j * RTS + r] = acc[m][i][e];
+          }
+    }
+  }
+  if (passes == 1) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int n = warp + 8 * i;
         if (n >= nt) continue;
-        const __nv_bfloat16* wr = w + (n * 8 + g) * sst + s * 16 + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wr + 8);
 #pragma unroll
-        for (int m = 0; m < MT; ++m)
-          if (m * 16 < rg.rows)
-            asm volatile(
-              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-              "{%0, %1, %2, %3};\n"
-              : "+f"(acc[m][i][0]), "+f"(acc[m][i][1]), "+f"(acc[m][i][2]),
-                "+f"(acc[m][i][3])
-              : "r"(af[m][0]), "r"(af[m][1]), "r"(af[m][2]), "r"(af[m][3]),
-                "r"(b0), "r"(b1));
+        for (int e = 0; e < 4; ++e) {
+          const int r = m * 16 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
+          if (r >= rg.rows || j >= dout) continue;
+          float x = acc[m][i][e] + __ldg(B + j);
+          if (!last) x = mlp_in<__nv_bfloat16>(leaky(x));
+          dst[j * RTS + r] = x;
+        }
       }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = warp + 8 * i;
-      if (n >= nt) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m * 16 + g + (e >> 1) * 8, j = n * 8 + 2 * t + (e & 1);
-        if (r >= rg.rows || j >= dout) continue;
-        float x = acc[m][i][e] + __ldg(B + j);
+  } else {
+    __syncthreads();  // the parked sums of every warp are in dst
+    for (int j = threadIdx.x; j < dout; j += kThreads) {
+      const float bj = __ldg(B + j);
+      for (int r = 0; r < rg.rows; ++r) {
+        float x = dst[j * RTS + r] + bj;
         if (!last) x = mlp_in<__nv_bfloat16>(leaky(x));
         dst[j * RTS + r] = x;
       }
     }
+  }
   const int pad = (round_up(dout, 16) - dout) * rg.rows;
   for (int p = threadIdx.x; p < pad; p += kThreads)
     dst[(dout + p / rg.rows) * RTS + p % rg.rows] = 0.f;
@@ -1533,8 +1662,9 @@ extern "C" int ionflux_trip_solve(
     return (int)cudaErrorInvalidValue;
   if (ring) {
     // geom: (offset, chunk depth, chunks) per layer, from the wrapper's
-    // packing; the ring pass takes widths up to 256 and 16-byte stages
-    if (a.wmax > 256 || stage_bytes < 16 || stage_bytes % 16)
+    // packing, in 16-byte stages (the launch refuses a block whose stages
+    // and activation buffers exceed the shared memory it may take)
+    if (stage_bytes < 16 || stage_bytes % 16)
       return (int)cudaErrorInvalidValue;
     for (int l = 0; l < n_layers; ++l) {
       a.ring_off[l] = geom[3 * l];

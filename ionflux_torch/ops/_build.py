@@ -128,12 +128,17 @@ _SIGNATURES = {
             _PTR, _PTR, _PTR, _PTR, _PTR,       # rec_sc, rec_y, rec_k, n_out,
                                                 # alive_out
             _I32, _I32, _I32, _I32,             # b, n_pad, trips, block
-            _FLOATS, _PTR,                      # scalars, stream
+            _I32,                               # threads per lane
+            _FLOATS,                            # scalars
+            ctypes.POINTER(ctypes.c_int),       # the launch's layout (out)
+            _PTR,                               # stream
         ],
         "ionflux_hh_rk4": [
             _PTR, _PTR, _PTR,                   # v, params, out
             _I32, _I32, _I32, _I32,             # b, n_knots, n_out, n_sub
-            _FLOATS, _PTR,                      # scalars, stream
+            _FLOATS,                            # scalars
+            ctypes.POINTER(ctypes.c_int),       # the launch's layout (out)
+            _PTR,                               # stream
         ],
     },
     "bias_probe": {
@@ -165,10 +170,57 @@ def launch(name: str, fn: str, dev, *args) -> None:
     """Call the C entry point ``fn`` of library ``name`` with ``args`` and
     the device's current stream; raise if the launch was refused."""
     lib = load_library(name)
+    entry = getattr(lib, fn)
+    if len(args) + 1 != len(entry.argtypes):    # ctypes passes extras on
+        raise TypeError(f"{fn} takes {len(entry.argtypes) - 1} arguments "
+                        f"and the stream, got {len(args)}")
     with torch.cuda.device(dev):
-        err = getattr(lib, fn)(*args,
-                               torch.cuda.current_stream(dev).cuda_stream)
+        err = entry(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"{fn}: kernel launch failed: "
             f"{lib.ionflux_error_string(err).decode()} (cudaError {err})")
+
+
+# The launches of the CUDA graph being captured, by wrapper (None: none is)
+_captured: dict | None = None
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``:
+    now, or, for a launch recorded into a CUDA graph by ``Graph``, at each
+    replay of that graph.  A capture itself launches nothing."""
+    if _captured is not None and torch.cuda.is_current_stream_capturing():
+        _captured[wrapper] = _captured.get(wrapper, 0) + 1
+    else:
+        wrapper.launches += 1
+
+
+class Graph:
+    """``fn(*inputs)`` captured once as a CUDA graph on ``inputs``' device
+    (``torch.cuda.CUDAGraph``) and replayed: each ``replay()`` runs the
+    captured kernels on what ``inputs`` hold then (copy new values into
+    them first) and returns the output tensor(s) of the capture, which the
+    next replay overwrites.  ``fn`` must make no host synchronisation and
+    no host-to-device copy, and must have run eagerly once on the device
+    before (kernels built, caches filled).  Each replay adds the launches it
+    recorded to the wrappers' counts (``count_launch``)."""
+
+    def __init__(self, fn, *inputs):
+        global _captured
+        self.inputs = inputs
+        self._graph = torch.cuda.CUDAGraph()
+        _captured = {}
+        try:
+            with torch.cuda.graph(self._graph):
+                self.output = fn(*inputs)
+            self.launches = _captured
+        finally:
+            _captured = None
+
+    def replay(self):
+        self._graph.replay()
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n
+        return self.output
+

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ionflux_torch.ops._build import count_launch
+
 ROWS, TRIPS, OUT_COLS = 16, 64, 128
 
 
@@ -77,7 +79,7 @@ def bias_probe(w: torch.Tensor, b: torch.Tensor,
     out = torch.empty((p, OUT_COLS), dtype=torch.float32, device=w.device)
     launch("bias_probe", "ionflux_bias_probe", w.device, w.data_ptr(),
            b.data_ptr(), out.data_ptr(), p, ROWS, m, TRIPS, int(fold))
-    bias_probe.launches += 1
+    count_launch(bias_probe)
     return out
 
 

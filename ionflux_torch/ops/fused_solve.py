@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ionflux_torch.models.registry import HHParams, NETSCALE, VRANGE
+from ionflux_torch.ops._build import count_launch
 from ionflux_torch.solver.dopri5 import _A, _B_ERR, _B_SOL, _C, _P_DENSE
 
 _SAFETY, _MINF, _MAXF = 0.9, 0.2, 10.0
@@ -351,7 +352,7 @@ def _trip_loop_plain(rhs_all, y0, *, t0: float, t_end: float, dt_knot: float,
 
 RING_STAGES = 3            # the ring's stages (kStages in the kernel)
 RING_STAGE_BYTES = 65536   # one stage of the ring: at most this per chunk
-RING_MAX_WIDTH = 256       # the ring pass's widest layer
+RING_PASS_COLUMNS = 256    # the columns a pass of the ring's threads covers
 _SMEM_BYTES = 232448       # shared memory one block may take on Hopper
 
 
@@ -374,6 +375,61 @@ def ring_stage_cap(row_tile: int, wmax: int) -> int:
     rest = 96 * rt + 2048
     return min(RING_STAGE_BYTES,
                (_SMEM_BYTES - act - rest) // RING_STAGES // 16 * 16)
+
+
+def _ring_min_chunk(d_out: int, bf16: bool) -> int:
+    """Bytes of the smallest chunk of a layer with ``d_out`` outputs: one
+    k-row of [in, round4(out)] in f32, one mma k-step of the transposed
+    layer ([round8(out), 16 + 8]) in bf16."""
+    return (2 * _round_up(d_out, 8) * (16 + 8) if bf16
+            else 4 * _round_up(d_out, 4))
+
+
+def _ring_cap(row_tile: int, sizes, bf16: bool) -> int:
+    """``ring_stage_cap`` at the instantiation the kernel launches: bf16
+    runs one row in an 8-row tile (the mma's rows), never at RT = 1."""
+    return ring_stage_cap(max(row_tile, 2) if bf16 else row_tile, max(sizes))
+
+
+def ring_fits(row_tile: int, sizes, bf16: bool) -> bool:
+    """Whether the ring pass takes a net of layer widths ``sizes`` at
+    ``row_tile`` rows per block: the capped stage holds the smallest chunk
+    of every layer."""
+    cap = _ring_cap(row_tile, sizes, bf16)
+    return cap >= 16 and all(_ring_min_chunk(d, bf16) <= cap
+                             for d in sizes[1:])
+
+
+def ring_row_tile(row_tile: int, sizes, bf16: bool) -> int:
+    """The size rule of the population launches' layer pass (B1 in both
+    modes, B4): the rows a block takes, ``row_tile`` (what Q and q_split
+    ask for) when the ring's stages, activation buffers and lane state fit a
+    block's shared memory at that tile, else the largest smaller tile of the
+    kernel's (16, 8, and in f32 1) that fits.  The result does not depend
+    on the tile (each row's sums run in one order).  A d1-sized or 500-wide
+    net keeps ``row_tile``; a (2, w, w, 1) net fits up to w = 11,512 in
+    f32 (one row) and 952 in bf16 (8 rows).  Raises for a net no tile
+    takes."""
+    for rt in (row_tile, 16, 8, 1):
+        if rt <= row_tile and ring_fits(rt, sizes, bf16):
+            return rt
+    raise ValueError(
+        f"the ring pass cannot hold a layer {max(sizes)} wide in a block's "
+        f"shared memory ({'bf16' if bf16 else 'f32'})")
+
+
+def ring_column_passes(row_tile: int, sizes, bf16: bool) -> int:
+    """The passes the ring's threads make over each chunk of the widest
+    layer: 1 up to RING_PASS_COLUMNS columns (4 x as many at one row per
+    block, one column group per thread), more beyond (the kernel parks the
+    running sums in shared memory between chunks)."""
+    d_out = max(sizes[1:])
+    if bf16:
+        return -(-_round_up(d_out, 8) // RING_PASS_COLUMNS)
+    rt = _tile_rt(row_tile)
+    groups = 1 if rt == 1 else rt // 2          # row groups (ring_tr)
+    per_pass = -(-groups * 64 // 256) * 256     # NT * kThreads tasks
+    return -(-groups * (_round_up(d_out, 4) // 4) // per_pass)
 
 
 def ring_geometry(sizes, bf16: bool, stage_cap: int = RING_STAGE_BYTES):
@@ -534,6 +590,25 @@ def _pass_info(csize: int, units: int) -> dict:
                 cluster_size=csize, clusters=units if csize else 0)
 
 
+def launch_plan(s: _Setup) -> tuple[int, dict]:
+    """How a trip launch runs on the card: the rows per thread block (or
+    cluster) and the layer pass, by the stated rules.  The popsweep and the
+    population solve take the ring pass at ``ring_row_tile``'s tile; the
+    sweep takes ``sweep_cluster``'s pass (or what ``s.cluster`` forces).
+    The dict names the pass: {"layer_pass": "ring", "row_tile",
+    "column_passes"} or ``_pass_info``'s fields."""
+    p, q = s.y0.shape[:2]
+    sizes = [s.layers[0][0].shape[1]] + [w.shape[2] for w, _ in s.layers]
+    row_tile = min(MAX_ROW_TILE, q // s.q_split)
+    if s.ring:
+        row_tile = ring_row_tile(row_tile, sizes, s.bf16)
+        return row_tile, dict(
+            layer_pass="ring", row_tile=row_tile,
+            column_passes=ring_column_passes(row_tile, sizes, s.bf16))
+    return row_tile, _pass_info(_sweep_pass(s, row_tile),
+                                p * -(-q // row_tile))
+
+
 def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE):
     """What both CUDA entry points take besides the outputs: the weights as
     one flat row per member (bf16 when ``s.bf16``): W0, W1, ... row-major
@@ -542,7 +617,7 @@ def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE):
     geometry (or None), the biases in f32, the layer widths, the 16 scalars
     and the cluster pass's (blocks per cluster, geometry, floats per rank),
     (0, None, 0) for the other passes.  ``row_tile`` sizes the ring's
-    stages and decides the sweeps' pass."""
+    stages and decides the sweeps' pass; ``launch_plan`` gives it."""
     if len(s.layers) > 16:
         raise ValueError("the CUDA kernel takes at most 16 layers")
     p = s.y0.shape[0]
@@ -550,12 +625,12 @@ def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE):
     csize = 0 if s.ring else _sweep_pass(s, row_tile)
     cluster = (0, None, 0)
     if s.ring:
-        if max(sizes) > RING_MAX_WIDTH:
-            raise ValueError(f"the population kernels take layers up to "
-                             f"{RING_MAX_WIDTH} wide, got {max(sizes)}")
+        if not ring_fits(row_tile, sizes, s.bf16):
+            raise ValueError(f"the ring pass does not take this net at "
+                             f"{row_tile} rows: use launch_plan's tile")
         # exact in bf16: the setup rounded the weights
         wflat, geom, stage = _ring_pack(
-            s.layers, s.bf16, ring_stage_cap(row_tile, max(sizes)))
+            s.layers, s.bf16, _ring_cap(row_tile, sizes, s.bf16))
         ring = ((ctypes.c_int * (3 * len(geom)))(*sum(geom, ())), stage)
     elif csize:
         wflat, geom, stride = _cluster_pack(s.layers, csize)
@@ -581,14 +656,15 @@ def _trip_solve_cuda(s: _Setup):
     tensors' device and current stream; same outputs as the plain version.
     A thread block, or a cluster of blocks in the sweeps' cluster pass, owns
     up to MAX_ROW_TILE rows of one member (fewer with ``q_split``; the
-    result does not depend on the tiling).  Raises on a refused launch;
-    never synchronises.  ``_trip_solve_cuda.last_pass`` says which layer
-    pass the sweep took, on how many clusters."""
+    result does not depend on the tiling; ``launch_plan`` picks it).  Raises
+    on a refused launch; never synchronises.  ``_trip_solve_cuda.last_pass``
+    names the layer pass the launch took: its row tile and column passes
+    (the ring), or its cluster size and clusters (the sweeps)."""
     from ionflux_torch.ops._build import launch
 
     dev = s.vpad.device
     p, q = s.y0.shape[:2]
-    row_tile = min(MAX_ROW_TILE, q // s.q_split)
+    row_tile, info = launch_plan(s)
     wflat, ring, bflat, c_sizes, scal, cluster = _kernel_inputs(s, row_tile)
     geom, stage = ring if ring else (None, 0)
     grid = p * -(-q // row_tile)     # blocks, or clusters
@@ -608,8 +684,7 @@ def _trip_solve_cuda(s: _Setup):
             len(s.layers), p, q, s.vpad.shape[1], row_tile, s.trips,
             s.block, int(s.cull), int(bool(s.base_a)), scal, int(s.ring),
             geom, stage, s.q_real, *cluster)
-    if not s.ring:
-        _trip_solve_cuda.last_pass = _pass_info(cluster[0], grid)
+    _trip_solve_cuda.last_pass = info
     return rec_sc, rec_y, rec_k, n_out, alive.bool()
 
 
@@ -621,6 +696,17 @@ _trip_solve_cuda.last_pass = None
 # ---------------------------------------------------------------------------
 
 _DENSE_CHUNK_ELEMS = 1 << 24   # bound on the [T, 7, P, Q, 2] record gather
+_P_DENSE_ON = {}               # device -> Shampine's quartic coefficients
+
+
+def _p_dense(device) -> torch.Tensor:
+    """Shampine's dense-output coefficients on ``device``, copied there
+    once: phase 2 then makes no host-to-device copy, so a CUDA graph can
+    capture it."""
+    if device not in _P_DENSE_ON:
+        _P_DENSE_ON[device] = torch.as_tensor(_P_DENSE, dtype=torch.float32,
+                                              device=device)
+    return _P_DENSE_ON[device]
 
 
 def _dense_eval_popsweep_ft(rec_sc, rec_y, rec_k, n_acc, n_valid,
@@ -634,8 +720,7 @@ def _dense_eval_popsweep_ft(rec_sc, rec_y, rec_k, n_acc, n_valid,
     t_rec = torch.where(
         torch.arange(trips, device=rec_sc.device) < n_valid, rec_sc[:, 0],
         torch.full_like(rec_sc[:, 0], _SENTINEL))
-    p_dense = torch.as_tensor(_P_DENSE, dtype=torch.float32,
-                              device=rec_sc.device)
+    p_dense = _p_dense(rec_sc.device)
     chunk = max(1, _DENSE_CHUNK_ELEMS // (7 * p * q * 2))
     parts = []
     for c0 in range(0, ts.shape[0], chunk):
@@ -702,7 +787,7 @@ def _sweep(net, rgate, protos_v, ts, *, proto_t0, proto_dt, t_end, rtol,
         out = _trip_solve_plain(s)
     else:
         out = _trip_solve_cuda(s)
-        fused_nnf_solve_ft.launches += 1
+        count_launch(fused_nnf_solve_ft)
         fused_nnf_solve_ft.last_pass = _trip_solve_cuda.last_pass
     rec_sc, rec_y, rec_k, n_out, alive = out
     return _dense_eval_ft(rec_sc, rec_y, rec_k, n_out[0], n_out[1], ts,
@@ -861,7 +946,7 @@ def _popsweep(nets, rgate, protos_v, ts, *, proto_t0, proto_dt, t_end, rtol,
         out = _trip_solve_plain(s)
     else:
         out = _trip_solve_cuda(s)
-        fused_nnf_popsweep_solve_ft.launches += 1
+        count_launch(fused_nnf_popsweep_solve_ft)
     rec_sc, rec_y, rec_k, n_out, alive = out
     recs = PopsweepRecords(rec_sc, rec_y, rec_k, n_out[0], n_out[1], p, q,
                            q_req, alive)
@@ -948,7 +1033,7 @@ def _pop(nets, rgate, proto_v, ts, *, proto_t0, proto_dt, t_end, rtol, atol,
         out = _trip_solve_plain(s)
     else:
         out = _trip_solve_cuda(s)
-        fused_nnf_pop_solve_ft.launches += 1
+        count_launch(fused_nnf_pop_solve_ft)
     rec_sc, rec_y, rec_k, n_out, alive = out
     ys = _dense_eval_popsweep_ft(rec_sc, rec_y, rec_k, n_out[0], n_out[1],
                                  ts)[:, 0]
@@ -1095,7 +1180,7 @@ def _while(net, rgate, protos_v, ts, *, proto_t0, proto_dt, t_end, rtol,
         out = _while_solve_plain(s, int(max_steps))
     else:
         out = _while_solve_cuda(s, int(max_steps))
-        fused_nnf_solve.launches += 1
+        count_launch(fused_nnf_solve)
         fused_nnf_solve.last_pass = _while_solve_cuda.last_pass
     rec_sc, rec_y, rec_k, n_out = out
     return _dense_eval_popsweep_ft(rec_sc, rec_y, rec_k, n_out[0],

@@ -17,7 +17,11 @@
 Each wrapper sends a CPU tensor to the plain PyTorch version (``*_plain``)
 and a CUDA tensor to the hand-written kernel in ``csrc/hh_solve.cu``; it
 never falls back from one to the other.  ``<wrapper>.launches`` counts
-kernel launches.
+kernel launches (``ops._build.count_launch``: a launch inside a CUDA graph
+counts at each replay), and ``<wrapper>.last_layout`` holds the layout the
+kernel reported for its last launch.  ``hh_trip_geometry`` and
+``rk4_geometry`` are the kernels' layout rules (threads per lane, lanes per
+block).
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ import ctypes
 import numpy as np
 import torch
 
+from ionflux_torch.ops._build import count_launch
 from ionflux_torch.ops.fused_solve import (
+    _SMEM_BYTES,
     SWEEP_BLOCK,
     _check_f32,
     _dense_eval_ft,
@@ -36,6 +42,98 @@ from ionflux_torch.ops.fused_solve import (
 )
 
 MAX_LANES = 128
+MAX_THREADS = 512            # a block's threads (kMaxThreads in the kernel)
+TRIP_RATES = 20              # 5 distinct stage voltages x k1..k4 per trip
+TRIP_RECORDS = 8             # start y and 7 stages, float2 each
+TRIP_GROUPS = (20, 10, 5, 4, 3)  # helpers per lane: the rule's choices,
+                                 # the kernel's instantiations
+RK4_RATES = 12               # 3 distinct voltages x k1..k4 per substep
+RK4_CHUNK = 32               # substeps per slot of the RK4 ring
+RK4_LANES = 2                # lanes per RK4 block (kRk4Lanes in the kernel)
+
+
+def _warps(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def hh_trip_geometry(b: int) -> dict:
+    """How the trip kernel lays out B lanes in its one block: chain warps
+    first (thread l < B runs lane l's chain; ceil(B / 32) warps), then G
+    helper threads per lane (helper h serves lane h % B as member h // B,
+    computing the lane's rates member, member + G, ... < 20 and copying its
+    records member, member + G, ... < 8).  The rule: the largest G of
+    TRIP_GROUPS whose threads fit MAX_THREADS: 20 (one rate per helper) up
+    to 24 lanes, 10 up to 44, 5 up to 83, 4 up to 96 and 3 up to 128.
+    Returns {group, threads, chain_warps, smem_bytes}."""
+    if not 1 <= b <= MAX_LANES:
+        raise ValueError(f"the trip kernel takes 1..{MAX_LANES} lanes, got "
+                         f"{b}")
+    threads = lambda g: _warps(b) + _warps(b * g)
+    group = next(g for g in TRIP_GROUPS if threads(g) <= MAX_THREADS)
+    # rates [20][128], records [2][8][128] float2, voltages, partials
+    smem = (4 * TRIP_RATES * MAX_LANES + 2 * 8 * TRIP_RECORDS * MAX_LANES
+            + 32 + 16)
+    return dict(group=group, threads=threads(group),
+                chain_warps=-(-b // 32), smem_bytes=smem)
+
+
+def _trip_roles(b: int):
+    """Which thread does what in the trip kernel at the rule's layout, by
+    its index arithmetic: (chain [B]: the thread of each lane's chain, rate
+    [B, 20]: the thread computing each rate, record [B, 8]: the thread
+    copying each record; -1 where none does)."""
+    geo = hh_trip_geometry(b)
+    group = geo["group"]
+    n_chain = 32 * geo["chain_warps"]
+    chain = np.full(b, -1)
+    rate = np.full((b, TRIP_RATES), -1)
+    record = np.full((b, TRIP_RECORDS), -1)
+    for t in range(geo["threads"]):
+        if t < n_chain:
+            if t < b:
+                chain[t] = t
+            continue
+        lane, g = (t - n_chain) % b, (t - n_chain) // b
+        if g < group:
+            rate[lane, g::group] = t
+            record[lane, g::group] = t
+    return chain, rate, record
+
+
+def rk4_geometry(b: int) -> dict:
+    """How the RK4 kernel spreads B independent lanes: RK4_LANES per block,
+    each block one consumer warp (thread l runs the chain of lane l) and
+    ceil(12 lanes / 32) producer warps (thread p owns the (lane, rate)
+    pairs p, p + producers, ...), with a two-slot ring of RK4_CHUNK
+    substeps x lanes x 12 rates.  Returns {lanes_per_block, blocks,
+    threads, producers, smem_bytes}."""
+    if not 1 <= b <= MAX_LANES:
+        raise ValueError(f"the RK4 kernel takes 1..{MAX_LANES} lanes, got "
+                         f"{b}")
+    lanes = RK4_LANES
+    producers = -(-lanes * RK4_RATES // 32) * 32
+    return dict(lanes_per_block=lanes, blocks=-(-b // lanes),
+                threads=32 + producers, producers=producers,
+                smem_bytes=4 * 2 * RK4_CHUNK * lanes * RK4_RATES + 32)
+
+
+def _rk4_roles(b: int):
+    """Which thread of which block does what in the RK4 kernel: (consumer
+    [B]: (block, thread) of each lane's chain, producer [B, 12]: (block,
+    thread) computing each of a lane's rates)."""
+    geo = rk4_geometry(b)
+    lanes = geo["lanes_per_block"]
+    consumer = np.full((b, 2), -1)
+    producer = np.full((b, RK4_RATES, 2), -1)
+    for blk in range(geo["blocks"]):
+        l0 = blk * lanes
+        nl = min(lanes, b - l0)
+        for t in range(nl):
+            consumer[l0 + t] = (blk, t)
+        for p in range(geo["producers"]):
+            for e in range(p, nl * RK4_RATES, geo["producers"]):
+                producer[l0 + e // RK4_RATES, e % RK4_RATES] = (blk, 32 + p)
+    return consumer, producer
 
 
 def _check_population(params: torch.Tensor, proto_v: torch.Tensor) -> int:
@@ -122,11 +220,15 @@ def _hh_pop_solve(params, proto_v, y0, *, proto_t0, proto_dt, t_end, rtol,
     scal = (ctypes.c_float * 8)(f(t0), f(1.0 / dt), f(dt * 10.0), f(t_end),
                                 f(t_end - t0), f(rtol), f(atol),
                                 f(float(trips)))
+    layout = (ctypes.c_int * 3)()
     launch("hh_solve", "ionflux_hh_trip_solve", dev, vpad.data_ptr(),
            params.data_ptr(), y0.data_ptr(), rec_sc.data_ptr(),
            rec_y.data_ptr(), rec_k.data_ptr(), n_out.data_ptr(),
-           alive.data_ptr(), b, n_pad, trips, SWEEP_BLOCK, scal)
-    fused_hh_pop_solve_ft.launches += 1
+           alive.data_ptr(), b, n_pad, trips, SWEEP_BLOCK,
+           hh_trip_geometry(b)["group"], scal, layout)
+    count_launch(fused_hh_pop_solve_ft)
+    fused_hh_pop_solve_ft.last_layout = dict(
+        zip(("group", "threads", "chain_warps"), layout))
     return rec_sc, rec_y, rec_k, n_out, alive.bool()
 
 
@@ -162,6 +264,7 @@ def fused_hh_pop_solve_ft(params: torch.Tensor, proto_v: torch.Tensor,
 
 
 fused_hh_pop_solve_ft.launches = 0
+fused_hh_pop_solve_ft.last_layout = None
 
 
 def fused_hh_pop_solve_ft_plain(params: torch.Tensor, proto_v: torch.Tensor,
@@ -240,10 +343,13 @@ def _rk4(params, proto_v, *, proto_t0, proto_dt, dt_out, n_out, n_sub, y0,
     f = np.float32
     scal = (ctypes.c_float * 8)(f(t0), f(1.0 / dt), f(dt_out), f(h),
                                 f(0.5 * h), f(h / 6.0), f(y0[0]), f(y0[1]))
+    layout = (ctypes.c_int * 3)()
     launch("hh_solve", "ionflux_hh_rk4", dev, proto_v.data_ptr(),
            params.data_ptr(), out.data_ptr(), b, proto_v.shape[0], n_out,
-           n_sub, scal)
-    fused_hh_rk4.launches += 1
+           n_sub, scal, layout)
+    count_launch(fused_hh_rk4)
+    fused_hh_rk4.last_layout = dict(
+        zip(("lanes_per_block", "blocks", "threads"), layout))
     return out.permute(1, 0, 2).contiguous()
 
 
@@ -262,6 +368,7 @@ def fused_hh_rk4(params: torch.Tensor, proto_v: torch.Tensor, *,
 
 
 fused_hh_rk4.launches = 0
+fused_hh_rk4.last_layout = None
 
 
 def fused_hh_rk4_plain(params: torch.Tensor, proto_v: torch.Tensor, *,

@@ -38,7 +38,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_F32_LOOP = "if (!on[i]) continue;\n      const float* xp"
+_F32_LOOP = "if (!on[i]) continue;\n        tile_f32"
 _MMA_LOOP = "for (int s = 0; s < steps; ++s) {"
 _TILE = "return RT == 1 ? 1 : 2;"
 _STAGES = "constexpr int kStages = 3;"
@@ -47,7 +47,7 @@ _STAGES = "constexpr int kStages = 3;"
 VARIANTS = {
     "source": ([], {}, False),
     "no-products": ([(_F32_LOOP, "if (!on[i] || k0 >= 0) continue;\n"
-                                 "      const float* xp"),
+                                 "        tile_f32"),
                      (_MMA_LOOP, "for (int s = 0; s < 0 * steps; ++s) {")],
                     {}, False),
     "four-row-tiles": ([(_TILE, "return RT == 1 ? 1 : (RT == 8 ? 2 : 4);")],

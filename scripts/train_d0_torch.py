@@ -17,7 +17,10 @@ The PyTorch / CUDA counterpart of ``scripts/train_d0.py --fused``:
   candidate's state carried continuously across sweeps and across the
   Pr3->Pr5 boundary: per CMA-ES generation one launch of the adaptive
   HH-population kernel (``ops/hh_solve.fused_hh_pop_solve_ft``) per sweep, 16
-  in all, each seeded with the previous launch's final state;
+  in all, each seeded with the previous launch's final state; on the card
+  a generation is one replay of a CUDA graph of those 16 launches, their
+  dense output and the SSE (the counterpart of the JAX script's one jitted
+  ``lax.scan``);
 - CMA-ES itself runs on the host (``ionflux_torch.fit.cmaes``).
 
 Runs on the card unless ``--device cpu`` is given (the plain PyTorch version
@@ -47,6 +50,7 @@ from ionflux_torch.models.registry import (  # noqa: E402
     SYNTHETIC,
 )
 from ionflux_torch.observe import NOISE_SIGMA  # noqa: E402
+from ionflux_torch.ops._build import Graph  # noqa: E402
 from ionflux_torch.ops.hh_solve import fused_hh_pop_solve_ft  # noqa: E402
 from ionflux_torch.solver import odeint_chained  # noqa: E402
 
@@ -167,7 +171,10 @@ def make_objective_fused(d3: np.ndarray, d5: np.ndarray, pop: int,
     population size up to 128 lanes.  A stiff candidate is pace-culled and
     scores inf alone.  Returns objective(xs [n <= pop, 4] numpy) -> SSE [n]
     numpy float64; ``objective.device_fn`` is the same on tensors
-    ([pop, 4] -> [pop]) on ``device``.  ``recordings`` as in
+    ([pop, 4] -> [pop]) on ``device``, eager.  On a CUDA device the first
+    call of ``objective`` runs ``device_fn`` and captures it as a CUDA graph
+    (``ops._build.Graph``); every later call copies the candidates in and
+    replays the graph, bit for bit the same launches.  ``recordings`` as in
     ``generate_data``."""
     device = resolve_device(device)
     f32 = torch.float32
@@ -196,10 +203,11 @@ def make_objective_fused(d3: np.ndarray, d5: np.ndarray, pop: int,
     rg = torch.tensor([float(x) for x in RGATE], dtype=f32, device=device)
     e_rev = float(SYNTHETIC.e)
     zero = torch.zeros((), dtype=f32, device=device)
+    rest = torch.tensor([0.0, 1.0], dtype=f32, device=device).repeat(pop, 1)
 
     def sse_pop(xs: torch.Tensor) -> torch.Tensor:
         p8 = torch.cat([xs, rg[None].expand(pop, 4)], dim=1)
-        y = torch.tensor([0.0, 1.0], dtype=f32, device=device).repeat(pop, 1)
+        y = rest
         acc = torch.zeros(pop, dtype=f32, device=device)
         for seg_v, ts_aug, v_rows, d_rows, msk, dt, t_endf in blocks:
             for k in range(seg_v.shape[0]):
@@ -215,12 +223,20 @@ def make_objective_fused(d3: np.ndarray, d5: np.ndarray, pop: int,
         return torch.where(torch.isfinite(acc), acc,
                            torch.full_like(acc, float("inf")))
 
+    graph = []          # the captured generation, on a CUDA device
+
     def objective(xs: np.ndarray) -> np.ndarray:
         n = xs.shape[0]
         if n < pop:  # pad to the population width
             xs = np.concatenate([xs, np.repeat(xs[-1:], pop - n, axis=0)])
-        out = sse_pop(torch.as_tensor(np.asarray(xs, np.float32),
-                                      device=device))
+        xs = torch.as_tensor(np.asarray(xs, np.float32), device=device)
+        if graph:
+            graph[0].inputs[0].copy_(xs)
+            out = graph[0].replay()
+        else:
+            out = sse_pop(xs)
+            if device.type == "cuda":
+                graph.append(Graph(sse_pop, xs.clone()))
         return out.cpu().numpy().astype(np.float64)[:n]
 
     objective.device_fn = sse_pop

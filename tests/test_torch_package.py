@@ -331,6 +331,137 @@ def test_hh_rk4_kernel_matches_plain_on_card(card):
     assert float((ys_k - ys_p).abs().max()) <= 1e-5
 
 
+# The HH population kernels' Hopper layout (csrc/hh_solve.cu): the trip
+# kernel's chain warps and helper warps (G helpers per lane compute the
+# rates off the chain) across lane counts that fill one to four chain warps,
+# and the RK4 kernel's lanes spread over blocks with producer warps.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 8, 33, 128])
+def test_hh_pop_lane_groups_match_plain_on_card(card, b):
+    """The trip kernel at the rule's threads per lane (as the kernel reports
+    its launch) against the plain version (5e-3 on the gates, equal executed
+    trips), with lane b - 1 dead from the start (NaN y0) where there are two
+    lanes or more."""
+    pop = _hh_population(b, card)
+    v = TP.activation_protocol(20.0, 1.0, device=card).v
+    ts = torch.arange(50.0, 8000.0, 100.0, device=card)
+    y0 = torch.zeros(b, 2, device=card)
+    y0[:, 1] = 1.0
+    if b > 1:
+        y0[b - 1] = float("nan")
+    kw = dict(proto_t0=0.0, proto_dt=1.0, t_end=8000.0, rtol=1e-5,
+              atol=1e-7, trips=2048)
+    before = TH.fused_hh_pop_solve_ft.launches
+    out_k = TH._hh_pop_solve(pop, v, y0, plain=False, **kw)
+    torch.cuda.synchronize()
+    assert TH.fused_hh_pop_solve_ft.launches == before + 1
+    geo = TH.hh_trip_geometry(b)
+    assert TH.fused_hh_pop_solve_ft.last_layout == dict(
+        group=geo["group"], threads=geo["threads"],
+        chain_warps=geo["chain_warps"])
+    out_p = TH._hh_pop_solve(pop, v, y0, plain=True, **kw)
+    assert int(out_k[3][1]) == int(out_p[3][1]) and int(out_k[3][0]) > 0
+    ys = [TK._dense_eval_ft(*o[:3], o[3][0], o[3][1], ts, lane_ok=o[4])
+          for o in (out_k, out_p)]
+    if b > 1:
+        assert not bool(out_k[4][b - 1]) and bool(torch.isinf(ys[0][b - 1]).all())
+        assert bool(out_k[4][:b - 1].all())
+    _close_on_card(*ys)
+
+
+@pytest.mark.cuda
+def test_hh_pop_stiff_lane_dies_alone_and_carry_on_card(card):
+    """At 128 lanes (four chain warps): a stiff lane (p2 = 1: k1 ~ e^20 at
+    +20 mV) is pace-culled alone in kernel and plain version; then a second
+    sweep seeded with each version's final states (the y0 carry of the d0
+    objective) agrees within 5e-3."""
+    pop = _hh_population(128, card)
+    pop[1, 1] = 1.0
+    v = TP.activation_protocol(20.0, 1.0, device=card).v
+    ts = torch.arange(50.0, 8000.0, 100.0, device=card)
+    kw = dict(proto_dt=1.0, trips=2048, t_end=8000.0)
+    ys_k = TH.fused_hh_pop_solve_ft(pop, v, ts, **kw)
+    ys_p = TH.fused_hh_pop_solve_ft_plain(pop, v, ts, **kw)
+    for ys in (ys_k, ys_p):
+        dead = torch.isinf(ys).all(dim=(1, 2)).nonzero().flatten().tolist()
+        assert dead == [1]
+    _close_on_card(ys_k, ys_p)
+    v2 = TP.activation_protocol(-40.0, 1.0, device=card).v
+    ts_end = torch.cat([ts, torch.tensor([8000.0], device=card)])
+    carry = []
+    for fn in (TH.fused_hh_pop_solve_ft, TH.fused_hh_pop_solve_ft_plain):
+        first = fn(pop, v, ts_end, **kw)
+        carry.append(fn(pop, v2, ts, y0=first[:, -1, :].contiguous(), **kw))
+    assert bool(torch.isinf(carry[0][1]).all())        # NaN carried: dead
+    _close_on_card(*carry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sub", [1, 10])
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_hh_rk4_lane_spread_matches_plain_on_card(card, b, n_sub):
+    """The RK4 kernel (producer warps, one consumer thread per lane, lanes
+    spread as the kernel reports and the rule says) against the plain
+    version within 1e-5."""
+    pop = _hh_population(b, card)
+    v = TP.activation_protocol(20.0, 1.0, device=card).v[:3001]
+    kw = dict(proto_dt=1.0, dt_out=10.0, n_out=301, n_sub=n_sub,
+              y0=(0.1, 0.9))
+    before = TH.fused_hh_rk4.launches
+    ys_k = TH.fused_hh_rk4(pop, v, **kw)
+    torch.cuda.synchronize()
+    assert TH.fused_hh_rk4.launches == before + 1
+    geo = TH.rk4_geometry(b)
+    assert TH.fused_hh_rk4.last_layout == dict(
+        lanes_per_block=geo["lanes_per_block"], blocks=geo["blocks"],
+        threads=geo["threads"])
+    ys_p = TH.fused_hh_rk4_plain(pop, v, **kw)
+    assert tuple(ys_k.shape) == (b, 301, 2)
+    assert bool(torch.isfinite(ys_p).all())
+    assert float((ys_k - ys_p).abs().max()) <= 1e-5
+
+
+def _d0_script():
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_d0_torch
+
+    return train_d0_torch
+
+
+@pytest.mark.cuda
+def test_d0_objective_replays_its_graph_bit_for_bit_on_card(card):
+    """The d0 objective on two stand-in recordings (3 sweeps of ~2,000 knots
+    each): its first call runs eagerly and captures the generation as a CUDA
+    graph, every later call replays it; each call's SSE equals the eager
+    ``device_fn`` bit for bit and counts one launch per sweep (6; 16 on the
+    real Pr3 + Pr5), the capture none."""
+    T = _d0_script()
+    rs = np.random.RandomState(0)
+    recs = []
+    for name, period in (("standin-a", 2000), ("standin-b", 1999)):
+        cuts = np.linspace(0, period, 6).astype(int)
+        v = np.concatenate([np.repeat(
+            [-80.0, *rs.uniform(-100.0, 40.0, 3), -80.0], np.diff(cuts))
+            for _ in range(3)]).astype(np.float32)
+        recs.append((name, v, 1.0, 3, period))
+    data = [0.1 * rs.randn(600), 0.1 * rs.randn(600)]
+    pop = 8
+    objective = T.make_objective_fused(*data, pop, trips=2048, device=card,
+                                       recordings=recs)
+    for gen in range(3):
+        xs = T.P0[None] * np.exp(0.1 * rs.randn(pop, 4))
+        before = TH.fused_hh_pop_solve_ft.launches
+        f = objective(xs)
+        assert TH.fused_hh_pop_solve_ft.launches == before + 6, gen
+        assert f.shape == (pop,) and bool(np.isfinite(f).all())
+        ref = objective.device_fn(torch.tensor(xs, dtype=torch.float32,
+                                               device=card))
+        assert TH.fused_hh_pop_solve_ft.launches == before + 12
+        assert np.array_equal(f, ref.cpu().numpy().astype(np.float64)), gen
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p,sizes", [(5, (2, 64, 64, 1)),
                                      (64, (2, 250, 250, 1))])
@@ -481,6 +612,47 @@ def test_ring_pass_copies_padded_rows_bit_for_bit_on_card(card, q, mode):
     for a, b in zip(real[:3], every[:3]):
         assert torch.equal(a[:n], b[:n])
     assert torch.equal(real[4], every[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["popsweep", "bf16", "population"])
+def test_ring_pass_takes_500_wide_members_on_card(card, entry):
+    """The registry's 500-wide architecture (s07: Linear(2, 500), Linear(500,
+    500), Linear(500, 1)) as a 4-member population: more columns than one
+    pass of the ring's threads covers, so each chunk takes two passes with
+    the running sums parked in shared memory (one at one row per block).
+    Kernel against plain within 5e-3 on the gates, in f32 and bf16 and
+    through the population solve.  In bf16 a 1,000-wide net, past the ring
+    pass's widest layer (ROADMAP Queue C, open), is still refused before any
+    launch."""
+    nets = [(w * (16 / 500) ** 0.5, b) for w, b in _net(
+        seed=5, members=4, sizes=(2, 500, 500, 1), device=card)]
+    ts = torch.arange(50.0, 8000.0, 100.0, device=card)
+    kw = dict(proto_dt=1.0, trips=2048)
+    if entry == "population":
+        v = TP.activation_protocol(20.0, 1.0, device=card).v
+        ys_k = TK.fused_nnf_pop_solve_ft(nets, TR.HH_B06, v, ts, **kw)
+        torch.cuda.synchronize()
+        assert TK._trip_solve_cuda.last_pass == dict(
+            layer_pass="ring", row_tile=1, column_passes=1)
+        ys_p = TK.fused_nnf_pop_solve_ft_plain(nets, TR.HH_B06, v, ts, **kw)
+    else:
+        v = _protos(_levels(9), device=card)
+        kw["mxu_bf16"] = entry == "bf16"
+        ys_k = TK.fused_nnf_popsweep_solve_ft(nets, TR.HH_B06, v, ts, **kw)
+        torch.cuda.synchronize()
+        assert TK._trip_solve_cuda.last_pass == dict(
+            layer_pass="ring", row_tile=16, column_passes=2)
+        ys_p = TK.fused_nnf_popsweep_solve_ft_plain(nets, TR.HH_B06, v, ts,
+                                                    **kw)
+    assert bool(torch.isfinite(ys_p).all())
+    _close_on_card(ys_k, ys_p)
+    if entry == "bf16":
+        wide = _net(seed=5, members=4, sizes=(2, 1000, 1000, 1), device=card)
+        before = TK.fused_nnf_popsweep_solve_ft.launches
+        with pytest.raises(ValueError, match="ring pass"):
+            TK.fused_nnf_popsweep_solve_ft(wide, TR.HH_B06, v, ts, **kw)
+        assert TK.fused_nnf_popsweep_solve_ft.launches == before
 
 
 # The sweeps' layer passes (B2, B6): the cluster pass (weights in a

@@ -196,10 +196,65 @@ def test_entry_point_picks_the_layer_pass(entry, ring):
         assert cluster[0] == TK.CLUSTER_SIZE
 
 
-def test_ring_pass_refuses_wider_layers():
-    s = _setup("popsweep", (2, 300, 1))
-    with pytest.raises(ValueError, match="256"):
-        TK._kernel_inputs(s)
+@pytest.mark.parametrize("entry", ["popsweep", "bf16", "population"])
+def test_ring_pass_takes_wider_layers(entry):
+    """Layers wider than the 256 columns one pass of the ring's threads
+    covers: the launch plan keeps the ring pass, names it and the passes
+    over each chunk, and the kernel inputs follow with no refusal (the
+    card test test_ring_pass_takes_500_wide_members_on_card runs them)."""
+    s = _setup(entry, (2, 300, 300, 1), q=16 if entry != "population" else 3)
+    row_tile, info = TK.launch_plan(s)
+    # one row per block: its 256 threads cover 1,024 columns in one pass
+    want = 1 if entry == "population" else 16
+    assert info == dict(layer_pass="ring", row_tile=want,
+                        column_passes=1 if want == 1 else 2)
+    assert row_tile == want
+    wflat, geom, bflat, sizes, _, cluster = TK._kernel_inputs(s, row_tile)
+    packed, geom_p, stage = TK._ring_pack(
+        s.layers, s.bf16, TK._ring_cap(row_tile, [2, 300, 300, 1], s.bf16))
+    assert list(sizes) == [2, 300, 300, 1] and cluster == (0, None, 0)
+    assert torch.equal(wflat, packed)
+    assert list(geom[0]) == list(sum(geom_p, ())) and geom[1] == stage
+    assert tuple(bflat.shape) == (2, 601)
+
+
+WIDE = [D1, (2, 256, 256, 1), (2, 300, 300, 1), (2, 500, 500, 500, 1),
+        (2, 800, 800, 1), (2, 2000, 2000, 1)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sizes", WIDE, ids=lambda s: "x".join(map(str, s)))
+def test_ring_row_tile_rule(sizes, bf16):
+    """The size rule keeps the asked row tile while the ring's stages, the
+    activation buffers and the lane state fit a block at it, else takes the
+    largest smaller tile that fits (never 1 in bf16: the mma's rows); every
+    layer's smallest chunk fits the capped stage, and the block's shared
+    memory at the kernel's instantiation stays under what a block may take.
+    The registry's 500-wide nets keep 32 rows."""
+    for asked in (32, 16, 8, 1):
+        try:
+            rt = TK.ring_row_tile(asked, list(sizes), bf16)
+        except ValueError:
+            assert bf16 and max(sizes) >= 1000
+            continue
+        assert rt <= asked and TK.ring_fits(rt, list(sizes), bf16)
+        assert all(not TK.ring_fits(t, list(sizes), bf16)
+                   for t in (asked, 16, 8) if rt < t <= asked)
+        inst = next(t for t in (1, 8, 16, 32)
+                    if max(rt, 2 if bf16 else 1) <= t)
+        cap = TK._ring_cap(rt, list(sizes), bf16)
+        _, _, stage = TK.ring_geometry(list(sizes), bf16, cap)
+        act = _round_up(max(sizes), 16) * (1 if inst == 1 else inst + 4)
+        smem = (TK.RING_STAGES * stage + 4 * (2 * act + 7 * inst * 2
+                                              + 3 * inst * 2 + 2 * inst)
+                + 4 * 2 * inst)
+        assert stage <= cap and smem <= 232448 - 1024
+        for *_, rows, row_elems in _chunks(sizes, bf16, cap):
+            assert rows * row_elems * (2 if bf16 else 4) <= stage
+        passes = TK.ring_column_passes(rt, list(sizes), bf16)
+        assert passes == (1 if max(sizes[1:]) <= 256 else passes) >= 1
+    if max(sizes) <= 500:
+        assert TK.ring_row_tile(32, list(sizes), bf16) == 32
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])

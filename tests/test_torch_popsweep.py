@@ -300,3 +300,18 @@ def test_simulate_population_splits_rows_and_nnd():
     assert bool(torch.isfinite(i_all).all())
     with pytest.raises(ValueError, match="nnf/nnd"):
         TE.simulate_population("hh", pop, pt, ts, TR.SYNTHETIC)
+
+
+def test_popsweep_plain_matches_pallas_interpret_past_256_wide():
+    """A 2-member net with two 300-wide hidden layers, wider than one pass
+    of the CUDA ring's threads (the kernel takes it in two passes per
+    chunk): the plain version against the Pallas kernel in interpret mode,
+    at the tolerances of the narrow nets.  The weights are scaled by
+    1/sqrt(width) so the activations stay O(1) through the layers."""
+    net = np_net(6, n_layers=1, n_nodes=300, std=0.1 * (16 / 300) ** 0.5,
+                 members=2)
+    assert [w.shape[2] for w, _ in net] == [300, 300, 1]
+    rt, rj, tst, tsj = _records_pair(net)
+    ys_t = _assert_same_solve(rt, rj, tst, tsj)
+    assert tuple(ys_t.shape) == (2, 2, 80, 2)
+    assert bool(torch.isfinite(ys_t).all())
