@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``ionflux_torch/csrc`` (three sources, one nvcc
-each, started together; sm_90a), drives three paths of the port at full
+each, started together; sm_90a), drives four paths of the port at full
 width and holds every kernel (seven, the popsweep in both of its modes)
 against its plain PyTorch version on the same inputs.
 
@@ -71,9 +71,30 @@ after:
   currents' range at tests/test_pallas.py's 1 x 16 shape) and the bf16
   kernel on (c)'s d1 members (logged); (n) kernel vs plain and bias vs fold
   within 1e-5; times and bounds.
+  (n) also logs the probe's bound for the work its kernel does (column 0
+      only) beside the whole product's, and its chain floor (64 trips x 6
+      dependent operations x 4 cycles at the card's maximum SM clock);
   (o) the ring pass of the popsweep (f32 and bf16) and of the population
-      solve on 4 members of the registry's 500-wide architecture (s07),
-      kernel vs plain within 5e-3 (comparisons only);
+      solve on 4 members of the registry's 500-wide architecture (s07), and
+      the mlp() pass of the bf16 popsweep on 4 members of 2 x 960 x 960 x 1
+      (past the ring's widest bf16 layer), kernel vs plain within 5e-3
+      (comparisons only);
+
+Checkpoint validation on the recordings (studies.table_rollout_maes_pop's
+shape), counters set to 0 just before and read just after:
+  (p) 64 perturbed d1 members on the five table-1 recordings (pr3, pr5,
+      pr4, sinewave, aps at 0.1 ms; 5 rows padded to 8), segments of
+      103,224 samples (9), chunks of 4,096, 32,768 trips, rtol 1e-6:
+      ``simulate_population_real`` (9 chained popsweep launches), then
+      ``population_rollout_maes`` against member 0's currents plus
+      ``NOISE_SIGMA`` noise (``RandomState(0)``), Pr4 scored on sweeps 1-3:
+      a first call (the eager chain, then its capture as one CUDA graph)
+      and a graph replay (9 launches each); then the replay against the
+      eager chain (bit for bit), both chains under the profiler (device
+      idle share), the executed trips of each segment, the MAEs against
+      the host reduction of the currents (rtol 2e-4, atol 1e-6) and member
+      0's Pr4 currents against the plain chained ``simulate_long`` (2e-2 of
+      the range), with seconds;
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
@@ -87,6 +108,10 @@ f32 and in bf16, the population solve) also carry their executed trips
 the two sweeps' rows (the cluster pass) their executed trips or steps, the
 milliseconds per trip or step, the cluster size and count and the mlp()
 pass's time on the same inputs (B2 also at clusters of 16 and at (b')).
+The f32 popsweep's ``launches`` adds (p)'s to the forward path's
+(``launches_by_path``), and its row carries (p)'s eager and replay seconds
+and ms per executed trip; the probe's its bound for the whole product, its
+chain floor and the SM clock it was taken at.
 
 Any failing phase raises, so the script exits non-zero and prints no result.
 Without a CUDA device it exits with code 2.
@@ -130,6 +155,20 @@ BF16_DEV = 0.02       # (m): bf16 vs f32 currents, of their range, at the
                       # shape of tests/test_pallas.py::
                       # test_popsweep_mxu_bf16_storage (3 nets of 1 x 16)
 PROBE_TOL = 1e-5      # (n): probe kernel vs plain, and bias vs fold
+# (p): checkpoint validation on the table-1 recordings, at the shape
+# studies.table_rollout_maes_pop runs: 64 members, the five recordings in
+# its order, segments of 103,224 samples, chunks of 4,096, rtol 1e-6 /
+# atol 1e-8, Pr4 scored on sweeps 1-3.  Trips: 32,768, not the study's
+# 8,192: Pr3's -80 -> +60 mV edge falls 8,887.5 ms into the fifth segment,
+# where the shared f32 clock crawls through ~15,000 trips of tiny steps for
+# these 64 members (16,768 executed), so at 8,192 (or 16,384) the launch
+# falls short and the whole batch scores inf (PERF.md)
+VAL_NAMES = ["pr3-cell5", "pr5-cell5", "pr4-cell5", "sinewave-cell5",
+             "aps-cell5"]
+VAL_KW = dict(trips=32_768, seg_samples=103_224, chunk=4096, rtol=1e-6,
+              atol=1e-8)
+MAE_RTOL, MAE_ATOL = 2e-4, 1e-6   # device vs host reduction (test_pallas.py)
+LONG_TOL = 2e-2       # chained popsweep vs simulate_long, of the range
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): float32 on
 # the CUDA cores, bf16 on the tensor cores, and HBM3 bandwidth.  The kernels
@@ -150,6 +189,15 @@ def device_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (MHz), the clock it runs at under load."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def cuda_ms(fn, reps: int, warm: bool = True):
@@ -255,7 +303,13 @@ NO_PASS = "none (no MLP)"   # the HH kernels' and the probe's rows
 # mbarrier ring, lanes spread over blocks
 HH_TRIP_DESIGN = "chain-warps+helper-warps"
 HH_RK4_DESIGN = "producer-warps+mbarrier-ring"
+# The probe (csrc/bias_probe.cu): one thread per (member, row) chain, acc in
+# a register, column 0 only, no barrier; 8 operations per row and trip, 6 of
+# them on the dependent chain, each at least FP32_LATENCY cycles
+PROBE_DESIGN = "thread-per-row-chain"
+PROBE_ROW_OPS, PROBE_CHAIN_OPS, FP32_LATENCY = 8, 6, 4
 WIDE_SIZES = (2, 500, 500, 1)   # the registry's s07 architecture
+MLP_BF16_SIZES = (2, 960, 960, 1)   # past the ring's widest bf16 layer
 
 
 def ring_fields(n_valid: int, ms: float) -> dict:
@@ -297,32 +351,42 @@ def check_counts(what: str, launches: dict) -> None:
             raise RuntimeError(f"{what} never launched {n}")
 
 
-def evaluation_profile(objective, xs, secs_per_generation: float) -> None:
-    """Where one objective evaluation's time goes: a profiler trace of one
-    more evaluation (16 more launches), by kernel."""
+def profiled(call, kernel: str) -> tuple[float, float, float]:
+    """One ``call()`` under the profiler: (host seconds, device busy ms
+    summed over every kernel, of it the ms of kernels whose name holds
+    ``kernel``); busy 0 if the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        objective(xs)
+        t = time.perf_counter()
+        call()
         torch.cuda.synchronize()
-    busy = trip = 0.0
+        secs = time.perf_counter() - t
+    busy = mine = 0.0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         busy += us
-        if "hh_trip_kernel" in e.key:
-            trip += us
+        if kernel in e.key:
+            mine += us
+    return secs, busy / 1e3, mine / 1e3
+
+
+def evaluation_profile(objective, xs, secs_per_generation: float) -> None:
+    """Where one objective evaluation's time goes: a profiler trace of one
+    more evaluation (16 more launches), by kernel."""
+    _, busy, trip = profiled(lambda: objective(xs), "hh_trip_kernel")
     if busy <= 0.0:
         log("(h) profiler: no device time in the trace; kernel share of a "
             "generation not measured")
         return
     wall = secs_per_generation * 1e3
-    log(f"(h) one evaluation (profiler trace): device busy {busy / 1e3:.3f} "
-        f"ms, of which the HH-population kernel {trip / 1e3:.3f} ms and "
-        f"phase 2 with the objective's torch ops {(busy - trip) / 1e3:.3f} "
+    log(f"(h) one evaluation (profiler trace): device busy {busy:.3f} "
+        f"ms, of which the HH-population kernel {trip:.3f} ms and "
+        f"phase 2 with the objective's torch ops {busy - trip:.3f} "
         f"ms; against {wall:.3f} ms per generation on the host clock "
-        f"(untraced) the device is idle {100 * (1 - busy / 1e3 / wall):.1f}%")
+        f"(untraced) the device is idle {100 * (1 - busy / wall):.1f}%")
 
 
 def forward_path(dev, rows) -> dict:
@@ -828,42 +892,207 @@ def d0_path(dev, rows) -> None:
 
 
 def wide_check(dev) -> None:
-    """(o) The population launches' ring pass at the registry's 500-wide
-    architecture (s07), wider than one pass of its threads: 4 members
-    with weights 0.1 sqrt(16 / 500) N(0, 1) and biases 0.01 N(0, 1)
-    (``RandomState(5)``), the popsweep in f32 and in bf16 on 9 activation steps at 1 ms knots and
-    the population solve on one; kernel against plain within 5e-3 on the
-    gates.  Comparisons only: no path of the port sends such a net."""
+    """(o) The population launches' layer passes on wide nets: the ring at
+    the registry's 500-wide architecture (s07), wider than one pass of its
+    threads, and mlp() just past the ring's widest bf16 layer (2 x 960 x
+    960 x 1, launch_plan's second branch): 4 members with weights 0.1
+    sqrt(16 / fan-in) N(0, 1) and biases 0.01 N(0, 1) (``RandomState(5)``
+    and ``RandomState(6)``), the popsweep in f32 and in bf16 on 9
+    activation steps at 1 ms knots and the population solve on one; kernel
+    against plain within 5e-3 on the gates.  Comparisons only: no path of
+    the port sends such a net."""
     from ionflux_torch import protocols as P
     from ionflux_torch.models.registry import HH_B06
     from ionflux_torch.ops import fused_solve as F
 
-    rs = np.random.RandomState(5)
-    nets = [(torch.tensor((0.1 * (16 / 500) ** 0.5) * rs.randn(4, a, b),
-                          dtype=torch.float32, device=dev),
-             torch.tensor(0.01 * rs.randn(4, b), dtype=torch.float32,
-                          device=dev))
-            for a, b in zip(WIDE_SIZES[:-1], WIDE_SIZES[1:])]
+    def members(sizes, seed):
+        rs = np.random.RandomState(seed)
+        return [(torch.tensor((0.1 * (16 / max(a, 16)) ** 0.5)
+                              * rs.randn(4, a, b), dtype=torch.float32,
+                              device=dev),
+                 torch.tensor(0.01 * rs.randn(4, b), dtype=torch.float32,
+                              device=dev))
+                for a, b in zip(sizes[:-1], sizes[1:])]
+
+    nets, nets960 = members(WIDE_SIZES, 5), members(MLP_BF16_SIZES, 6)
     levels = [float(x) for x in np.linspace(-60.0, 40.0, 9)]
     v9 = P.stack([P.activation_protocol(x, 1.0, device=dev)
                   for x in levels]).v
     v1 = P.activation_protocol(20.0, 1.0, device=dev).v
     ts = torch.arange(50.0, 8000.0, 100.0, device=dev)
     kw = dict(proto_dt=1.0, trips=2048)
-    for name, kern, plain, v, extra in (
+    for name, kern, plain, net, v, extra, want in (
             ("popsweep f32", F.fused_nnf_popsweep_solve_ft,
-             F.fused_nnf_popsweep_solve_ft_plain, v9, {}),
+             F.fused_nnf_popsweep_solve_ft_plain, nets, v9, {}, "ring"),
             ("popsweep bf16", F.fused_nnf_popsweep_solve_ft,
-             F.fused_nnf_popsweep_solve_ft_plain, v9, {"mxu_bf16": True}),
+             F.fused_nnf_popsweep_solve_ft_plain, nets, v9,
+             {"mxu_bf16": True}, "ring"),
             ("population solve", F.fused_nnf_pop_solve_ft,
-             F.fused_nnf_pop_solve_ft_plain, v1, {})):
-        ys_k = kern(nets, HH_B06, v, ts, **kw, **extra)
-        torch.cuda.synchronize()
+             F.fused_nnf_pop_solve_ft_plain, nets, v1, {}, "ring"),
+            ("popsweep bf16", F.fused_nnf_popsweep_solve_ft,
+             F.fused_nnf_popsweep_solve_ft_plain, nets960, v9,
+             {"mxu_bf16": True}, "mlp")):
+        sizes = [2] + [w.shape[2] for w, _ in net]
+        ms_k, ys_k = cuda_ms(lambda: kern(net, HH_B06, v, ts, **kw, **extra),
+                             reps=1, warm=False)
         info = F._trip_solve_cuda.last_pass
-        gate_diff(f"(o) {name}, 4 members of {'x'.join(map(str, WIDE_SIZES))}"
-                  f" (ring pass, {info['row_tile']}-row tiles, "
-                  f"{info['column_passes']} column pass(es))", ys_k,
-                  plain(nets, HH_B06, v, ts, **kw, **extra))
+        if info["layer_pass"] != want:
+            raise RuntimeError(f"(o) {name}: took {info}, expected {want}")
+        how = (f"ring pass, {info['row_tile']}-row tiles, "
+               f"{info['column_passes']} column pass(es)" if want == "ring"
+               else f"mlp() pass, {info['row_tile']}-row tiles")
+        gate_diff(f"(o) {name}, 4 members of {'x'.join(map(str, sizes))} "
+                  f"({how}; {ms_k:.1f} ms)", ys_k,
+                  plain(net, HH_B06, v, ts, **kw, **extra))
+
+
+def validation_path(dev, rows) -> None:
+    """(p) Checkpoint validation on the five table-1 recordings: 64 d1
+    members x (1 + 0.01 N(0, 1)) (``RandomState(0)``, as (c)) through
+    ``simulate_population_real`` and ``population_rollout_maes`` at
+    studies.table_rollout_maes_pop's shape; counters set to 0 just before
+    and read just after.  Then, as comparisons: the chain eagerly and as a
+    graph replay (bit for bit), its device idle share, the executed trips
+    of each segment, the MAEs against the host reduction of the currents,
+    and member 0 on Pr4 against the plain chained ``simulate_long``."""
+    from ionflux_torch import eval as E
+    from ionflux_torch import protorec
+    from ionflux_torch.models import nn as N
+    from ionflux_torch.models.registry import TABLE1
+    from ionflux_torch.observe import NOISE_SIGMA
+    from ionflux_torch.ops import fused_solve as F
+    from ionflux_torch.utils.ckpt import params_from_leaves
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import probe_validation_chain_torch as PV
+
+    d1_leaves = npz_leaves(os.path.join(ROOT, "out", "d1", "model.npz"))
+    pop = params_from_leaves(population(d1_leaves, P_POP, 0), "nnf", dev)
+    n4 = protorec.SWEEPS["pr4-cell5"][1]
+    spans = {"pr4-cell5": (n4, 4 * n4)}
+    lens = [len(protorec.load_voltage(n)[0]) for n in VAL_NAMES]
+    log(f"(p) recordings {dict(zip(VAL_NAMES, lens))}; {VAL_KW}; Pr4 "
+        f"scored on samples {spans['pr4-cell5']}")
+    kern = F.fused_nnf_popsweep_solve_ft
+
+    # ---- the path, counted: the currents, then the MAEs (first call: the
+    #      eager chain and its capture; second call: one graph replay) ------
+    reset_counts()
+    t = time.perf_counter()
+    cur = E.simulate_population_real("nnf", pop, VAL_NAMES, TABLE1, **VAL_KW)
+    secs_cur = time.perf_counter() - t
+    n_seg = kern.launches
+    rs = np.random.RandomState(0)
+    truth = {n: cur[n][0] + NOISE_SIGMA * rs.randn(cur[n].shape[1])
+             for n in VAL_NAMES}
+    t = time.perf_counter()
+    maes_first = E.population_rollout_maes("nnf", pop, VAL_NAMES, TABLE1,
+                                           truth, spans=spans, **VAL_KW)
+    secs_first = time.perf_counter() - t
+    t = time.perf_counter()
+    maes = E.population_rollout_maes("nnf", pop, VAL_NAMES, TABLE1, truth,
+                                     spans=spans, **VAL_KW)
+    secs_graph = time.perf_counter() - t
+    launches = {"fused_nnf_popsweep_solve_ft": kern.launches}
+    check_counts("validation path", launches)
+    if launches["fused_nnf_popsweep_solve_ft"] != 3 * n_seg:
+        raise RuntimeError(f"validation path: {launches} launches, "
+                           f"expected 3 x {n_seg} segments")
+    log(f"(p) simulate_population_real: {n_seg} segments, "
+        f"{secs_cur:.3f} s; population_rollout_maes first call (eager "
+        f"chain + capture) {secs_first:.3f} s, graph replay "
+        f"{secs_graph:.3f} s (host clock)")
+    for n, ln in zip(VAL_NAMES, lens):
+        if cur[n].shape != (P_POP, ln):
+            raise RuntimeError(f"(p) {n}: currents {cur[n].shape}")
+
+    # ---- comparisons (after the path's counts were read) ------------------
+    t = time.perf_counter()
+    maes_eager = E.population_rollout_maes("nnf", pop, VAL_NAMES, TABLE1,
+                                           truth, spans=spans, graph=False,
+                                           **VAL_KW)
+    secs_eager = time.perf_counter() - t
+    same = (np.array_equal(maes, maes_eager, equal_nan=True)
+            and np.array_equal(maes_first, maes_eager, equal_nan=True))
+    log(f"(p) eager chain {secs_eager:.3f} s against the replay's "
+        f"{secs_graph:.3f} s; replay {'bit-identical to' if same else 'DIFFERS from'}"
+        f" the eager chain")
+    if not same:
+        raise RuntimeError("(p) the graph replay and the eager chain differ")
+    for label, call in (("graph replay", lambda: E.population_rollout_maes(
+            "nnf", pop, VAL_NAMES, TABLE1, truth, spans=spans, **VAL_KW)),
+            ("eager chain", lambda: E.population_rollout_maes(
+                "nnf", pop, VAL_NAMES, TABLE1, truth, spans=spans,
+                graph=False, **VAL_KW))):
+        secs, busy, trip = profiled(call, "trip_kernel")
+        if busy <= 0.0:
+            log(f"(p) {label} profiled: no device time in the trace; idle "
+                f"share not measured")
+        else:
+            log(f"(p) {label} profiled: {secs:.3f} s host, device busy "
+                f"{busy:.1f} ms (popsweep kernel {trip:.1f} ms, dense output "
+                f"and reduction {busy - trip:.1f} ms), idle "
+                f"{100 * (1 - busy / 1e3 / secs):.1f}%")
+    alive = np.isfinite(maes).all(axis=1)
+    log(f"(p) members finite on every recording: {int(alive.sum())} of "
+        f"{P_POP}; member 0 MAEs {dict(zip(VAL_NAMES, maes[0].round(6)))}")
+    if not alive[0]:
+        raise RuntimeError("(p) member 0 did not end finite")
+
+    # the host reduction of the currents (float64 means)
+    want = np.stack([[np.mean(np.abs(
+        cur[n][m, slice(*spans.get(n, (0, ln)))].astype(np.float64)
+        - truth[n][slice(*spans.get(n, (0, ln)))]))
+        for n, ln in zip(VAL_NAMES, lens)] for m in range(P_POP)])
+    fin = np.isfinite(want)
+    if not np.array_equal(fin, np.isfinite(maes)):
+        raise RuntimeError("(p) device and host MAEs disagree on which are "
+                           "finite")
+    rel = float(np.max(np.abs(maes[fin] - want[fin])
+                       / (MAE_ATOL + MAE_RTOL * np.abs(want[fin]))))
+    log(f"(p) MAEs vs the host reduction of the currents: max "
+        f"|d| / (atol + rtol |host|) = {rel:.3f} (must be <= 1; rtol "
+        f"{MAE_RTOL}, atol {MAE_ATOL})")
+    if not rel <= 1.0:
+        raise RuntimeError(f"(p) device vs host MAEs: {rel}")
+
+    # executed trips and kernel time of each segment (one more chain)
+    _, dt, seg, _, _, seg_v, _ = E._segment_recordings(
+        VAL_NAMES, seg_samples=VAL_KW["seg_samples"], chunk=VAL_KW["chunk"])
+    per_seg = PV.chain_segments(
+        pop.net.layers, pop.rgate, torch.as_tensor(seg_v, device=dev),
+        float(dt), seg * float(dt), len(VAL_NAMES), trips=VAL_KW["trips"],
+        rtol=VAL_KW["rtol"], atol=VAL_KW["atol"])
+    trips_run = sum(x["n_valid"] for x in per_seg)
+    seg_ms = sum(x["ms"] for x in per_seg)
+    log(f"(p) B1 launches per chain {len(per_seg)}; per segment (n_valid, "
+        f"n_acc): {[(x['n_valid'], x['n_acc']) for x in per_seg]}; kernel + "
+        f"final state ms {[round(x['ms'], 2) for x in per_seg]}; ms per "
+        f"executed trip {seg_ms / trips_run:.4f}")
+
+    # member 0 on Pr4 against the plain chained solve
+    member0 = N.NNfParams(pop.net.member(0), pop.rgate)
+    t = time.perf_counter()
+    i_long = E.simulate_long("nnf", member0, "pr4-cell5", TABLE1)
+    torch.cuda.synchronize()
+    secs_long = time.perf_counter() - t
+    i_long = i_long.cpu().numpy()
+    rng = float(i_long.max() - i_long.min())
+    d_long = float(np.abs(cur["pr4-cell5"][0] - i_long).max())
+    log(f"(p) member 0 on pr4-cell5: chained popsweep vs simulate_long "
+        f"(plain chained odeint, {secs_long:.1f} s): max |dI| = "
+        f"{d_long:.4e}, {d_long / rng:.3e} of the range (tol {LONG_TOL})")
+    if not d_long <= LONG_TOL * rng:
+        raise RuntimeError(f"(p) popsweep vs simulate_long {d_long}")
+    rows_b1 = next(r for r in rows
+                   if r["name"] == "fused_nnf_popsweep_solve_ft")
+    rows_b1["launches_by_path"] = {
+        "forward": rows_b1["launches"],
+        "validation": launches["fused_nnf_popsweep_solve_ft"]}
+    rows_b1["launches"] += launches["fused_nnf_popsweep_solve_ft"]
+    rows_b1.update(validation_s_eager=secs_eager,
+                   validation_s_graph=secs_graph,
+                   validation_ms_per_trip=seg_ms / trips_run)
 
 
 def accepted_trips(rec_sc: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -1085,32 +1314,57 @@ def while_probe_path(dev, rows, fwd: dict) -> None:
         library_ms=None, **ring_fields(n_k[1], ms_k)))
 
     # ---- (n) the probe kernel vs plain, bias vs fold -----------------------
+    import time_probe_torch as TT
+
     w, b = PR.probe_inputs(dev)
     err = 0.0
-    ms = {}
+    ms, times = {}, {}
     for fold, got in ((False, pr_bias), (True, pr_fold)):
-        ms[fold], _ = cuda_ms(lambda: B.bias_probe(w, b, fold=fold),
-                              reps=200)
+        # the kernel's own time (profiler), beside back-to-back calls as
+        # the host issues them and as one CUDA graph replays them
+        times[fold] = TT.probe_times(dev, fold, reps=200)
+        us = times[fold]["us_kernel"] or times[fold]["us_graph"]
+        ms[fold] = us / 1e3
         ms_p, ref = cuda_ms(lambda: B.bias_probe_plain(w, b, fold=fold),
                             reps=1)
         err = max(err, float((got - ref).abs().max()))
     d_case = float((pr_bias - pr_fold).abs().max())
-    log(f"(n) probe: kernel {ms[False] * 1e3:.2f} us (bias), "
-        f"{ms[True] * 1e3:.2f} us (fold), plain {ms_p:.2f} ms; kernel vs "
-        f"plain {err:.3e}, bias vs fold {d_case:.3e} (tol {PROBE_TOL})")
+    log(f"(n) probe: kernel {ms[False] * 1e3:.3f} us (bias), "
+        f"{ms[True] * 1e3:.3f} us (fold) by the profiler; per call as the "
+        f"host issues them {times[False]['us_eager']:.2f} / "
+        f"{times[True]['us_eager']:.2f} us, in one CUDA graph "
+        f"{times[False]['us_graph']:.3f} / {times[True]['us_graph']:.3f} "
+        f"us; plain {ms_p:.2f} ms; kernel vs plain {err:.3e}, bias vs fold "
+        f"{d_case:.3e} (tol {PROBE_TOL})")
     if not (err <= PROBE_TOL and d_case <= PROBE_TOL):
         raise RuntimeError(f"(n) probe: {err}, {d_case} > {PROBE_TOL}")
     p, _, m = w.shape
     q, trips = B.ROWS, B.TRIPS
-    b_ms, b_by = roofline(trips * p * q * 2 * m * 3,
+    # the work the kernel does: per row and trip 8 operations (1 - acc, two
+    # products, two sums, 1e-3 acc, its sum, tanhf counted as one) on
+    # column 0 only; 3 floats read per member, [P, 128] written
+    b_ms, b_by = roofline(trips * p * q * PROBE_ROW_OPS,
+                          (3 * p + p * B.OUT_COLS) * 4)
+    # what the JAX body computes: the whole [Q, 3] x [3, M] product
+    full_ms, _ = roofline(trips * p * q * 2 * m * 3,
                           (w.numel() + b.numel() + p * B.OUT_COLS) * 4)
+    mhz = sm_clock_mhz()
+    floor_ms = trips * PROBE_CHAIN_OPS * FP32_LATENCY / (mhz * 1e3)
+    log(f"(n) probe bound for the work done {b_ms * 1e3:.5f} us ({b_by}); "
+        f"for the whole product {full_ms * 1e3:.5f} us; chain floor "
+        f"{floor_ms * 1e3:.4f} us ({trips} trips x {PROBE_CHAIN_OPS} "
+        f"dependent operations x {FP32_LATENCY} cycles at {mhz:.0f} MHz)")
     rows.append(dict(
         name="bias_probe", route="cuda",
         source="ionflux_torch/csrc/bias_probe.cu",
         replaces="scripts/probe_mosaic_bias_fault.py:41",
         launches=launches["bias_probe"], max_abs_err=err, ms=ms[False],
         plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ms_fold=ms[True], layer_pass=NO_PASS))
+        ms_fold=ms[True], ms_host_issued=times[False]["us_eager"] / 1e3,
+        ms_graph=times[False]["us_graph"] / 1e3,
+        bound_ms_whole_product=full_ms,
+        chain_floor_ms=floor_ms, sm_clock_mhz=mhz, design=PROBE_DESIGN,
+        layer_pass=NO_PASS))
 
 
 def main() -> int:
@@ -1148,6 +1402,8 @@ def main() -> int:
     log(f"while/bf16/probe path done at {time.perf_counter() - t_start:.0f} "
         f"s")
     wide_check(dev)
+    validation_path(dev, rows)
+    log(f"validation path done at {time.perf_counter() - t_start:.0f} s")
     d0_path(dev, rows)
     log(f"d0 path done at {time.perf_counter() - t_start:.0f} s")
 

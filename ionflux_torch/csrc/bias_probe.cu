@@ -12,15 +12,24 @@
 // and out [P, 128] = acc in the first Q columns, zeros after.  The wrapper
 // and the plain PyTorch version are in ionflux_torch/ops/bias_probe.py.
 //
-// Design: one thread block per member p and one thread per (row, column) of
-// the [Q, M] product, so every trip computes the whole product and its bias
-// broadcast, not only the column that feeds acc; the product goes through
-// shared memory, where the row's column-0 thread reads it back for the tanh
-// update.  What bounds it on this card: neither bytes nor operations (6.3
-// MFLOP and 48 KB at the probe's P = 64, Q = 16, M = 16) but the 64
-// dependent trips of two block barriers each, and the launch.
-// Sums use round-to-nearest intrinsics (no FMA contraction), in the order
-// of the plain version's product.
+// Design: the function is P x Q independent row recurrences.  Row (p, r)
+// reads only its own acc and column 0 of member p's weights and bias, so one
+// thread runs one row's whole chain: its acc lives in a register, its three
+// column-0 weights are loaded once, and the 64 trips run with no block
+// barrier, no shared memory and nothing exchanged between lanes (no
+// shuffle is needed either).  A warp holds 32 / Q members' rows (two at the
+// probe's Q = 16), one warp per block, all P x Q rows in one launch.  The
+// other M - 1 columns of the product feed nothing the probe returns; the
+// JAX body forms them only because the broadcast is what it probes, and
+// this kernel does not form them.  Each row's column 0 is computed with the
+// same round-to-nearest operations in the same order as the first design's
+// (which formed the whole [Q, M] product in shared memory), so its results
+// are those of that kernel bit for bit, and tanhf is the accurate one.
+//
+// What bounds it on this card: the chain of one row, 64 trips of (1 - acc,
+// a product, two or three sums, tanhf), each step waiting on the last; the
+// work is ~0.5 MFLOP and ~33 KB (PERF.md restates the bound and the chain
+// floor).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -28,39 +37,34 @@
 namespace {
 
 constexpr int kOutCols = 128;
+constexpr int kWarp = 32;
 
-__global__ void bias_probe_kernel(const float* w, const float* b, float* out,
-                                  int q, int m, int trips, int fold) {
-  extern __shared__ float smem[];
-  float* acc = smem;      // [Q]
-  float* h = smem + q;    // [Q, M]
-  const int p = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int row = tid / m, col = tid % m;
-  const float* wp = w + (size_t)p * 3 * m;
-  // this thread's column of the weights: rows 0 and 1 of w[p], then b[p]
-  const float wb[3] = {wp[col], wp[m + col], b[(size_t)p * m + col]};
-  if (tid < q) acc[tid] = 0.1f;
-  __syncthreads();
+__global__ void __launch_bounds__(kWarp)
+    bias_probe_kernel(const float* w, const float* b, float* out, int p,
+                      int q, int m, int trips, int fold) {
+  const int l = blockIdx.x * kWarp + threadIdx.x;
+  if (l >= p * q) return;
+  const int mem = l / q, row = l % q;
+  const float* wp = w + (size_t)mem * 3 * m;
+  // column 0 of rows 0 and 1 of w[p], and of b[p]
+  const float w0 = __ldg(wp), w1 = __ldg(wp + m), bb = __ldg(b + (size_t)mem * m);
+  float acc = 0.1f;
   for (int i = 0; i < trips; ++i) {
-    const float a = acc[row];
-    const float x[3] = {a, __fsub_rn(1.f, a), 1.f};
+    const float x1 = __fsub_rn(1.f, acc);
     float hv;
     if (fold) {
-      hv = 0.f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) hv = __fadd_rn(hv, __fmul_rn(x[k], wb[k]));
+      hv = __fadd_rn(0.f, __fmul_rn(acc, w0));
+      hv = __fadd_rn(hv, __fmul_rn(x1, w1));
+      hv = __fadd_rn(hv, __fmul_rn(1.f, bb));
     } else {
-      hv = __fadd_rn(__fmul_rn(x[0], wb[0]), __fmul_rn(x[1], wb[1]));
-      hv = __fadd_rn(hv, wb[2]);
+      hv = __fadd_rn(__fmul_rn(acc, w0), __fmul_rn(x1, w1));
+      hv = __fadd_rn(hv, bb);
     }
-    h[tid] = hv;
-    __syncthreads();
-    if (col == 0) acc[row] = tanhf(__fadd_rn(h[tid], __fmul_rn(1e-3f, a)));
-    __syncthreads();
+    acc = tanhf(__fadd_rn(hv, __fmul_rn(1e-3f, acc)));
   }
-  for (int c = tid; c < kOutCols; c += blockDim.x)
-    out[(size_t)p * kOutCols + c] = c < q ? acc[c] : 0.f;
+  float* o = out + (size_t)mem * kOutCols;
+  o[row] = acc;
+  for (int c = q + row; c < kOutCols; c += q) o[c] = 0.f;
 }
 
 }  // namespace
@@ -68,11 +72,11 @@ __global__ void bias_probe_kernel(const float* w, const float* b, float* out,
 extern "C" int ionflux_bias_probe(const float* w, const float* b, float* out,
                                   int p, int q, int m, int trips, int fold,
                                   void* stream) {
-  if (p < 1 || q < 1 || m < 1 || q > kOutCols || q * m > 1024 || trips < 0)
+  if (p < 1 || q < 1 || m < 1 || q > kOutCols || trips < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)q * (m + 1);
-  bias_probe_kernel<<<p, q * m, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, b, out, q, m, trips, fold);
+  const int blocks = (p * q + kWarp - 1) / kWarp;
+  bias_probe_kernel<<<blocks, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+      w, b, out, p, q, m, trips, fold);
   return (int)cudaGetLastError();
 }
 

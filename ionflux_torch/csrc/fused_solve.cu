@@ -30,7 +30,12 @@
 // on one SM, 1,300x their bound, and the population launches, which stream a
 // different member's 0.8 MB of f32 weights through every block, at ~6% FMA
 // issue (PERF.md).  It stays for sweep nets whose slices do not fit a
-// cluster's shared memory (the wrapper's size rule, see mlp_cluster()).
+// cluster's shared memory (the wrapper's size rule, see mlp_cluster()), and
+// for population launches whose layers no ring tile holds (past 11,512 wide
+// in f32, 952 in bf16; the wrapper's launch_plan): there at the largest row
+// tile whose two activation buffers fit a block, with bf16 weights in the
+// mxu_bf16 mode.  One f32 row's two buffers fill a block's shared memory at
+// ~28,900 wide, the stated limit of both passes.
 //
 // The sweeps (B2, B6: one net, P = 1) take mlp_cluster(), chosen by the
 // wrapper's size rule (ops/fused_solve.py::sweep_cluster):
@@ -246,14 +251,25 @@ __device__ __forceinline__ float leaky(float x) {
   return x >= 0.f ? x : 0.01f * x;
 }
 
-// The sweeps' layer pass: MLP over the RT activation rows in `src` (row
-// stride wmax), f32 weights row-major [in, out] from global memory.  Returns
-// the buffer holding the [RT, 1] output.  All threads of the block call it.
-template <int RT>
-__device__ float* mlp(const Args& a, const float* wm, const float* bm,
+// A weight as the sum takes it: f32, or a bf16 weight widened (exact)
+__device__ __forceinline__ float ldw(const float* w) { return __ldg(w); }
+__device__ __forceinline__ float ldw(const __nv_bfloat16* w) {
+  return __bfloat162float(*w);
+}
+
+// mlp(): MLP over the RT activation rows in `src` (row stride wmax), weights
+// of WT row-major [in, out] from global memory.  Returns the buffer holding
+// the [RT, 1] output.  All threads of the block call it.  The sweeps' pass
+// for nets too large for a cluster, and the population launches' pass for
+// layers too wide for the ring (the wrapper's size rule): in bf16 every
+// product of a bf16 weight and a bf16-valued input is exact in f32, the sums
+// are f32, and each hidden layer's output is rounded to bf16 where it is
+// written (the mxu_bf16 semantics).
+template <int RT, typename WT>
+__device__ float* mlp(const Args& a, const WT* wm, const float* bm,
                       float* src, float* dst, int nr) {
   const int ld = a.wmax;
-  const float* W = wm;
+  const WT* W = wm;
   const float* B = bm;
   for (int l = 0; l < a.n_layers; ++l) {
     const int din = a.sizes[l], dout = a.sizes[l + 1];
@@ -266,7 +282,7 @@ __device__ float* mlp(const Args& a, const float* wm, const float* bm,
 #pragma unroll
         for (int r = 0; r < RT; ++r) acc[r] = 0.f;
         for (int k = lane; k < din; k += 32) {
-          const float wk = __ldg(W + k);
+          const float wk = ldw(W + k);
 #pragma unroll
           for (int r = 0; r < RT; ++r) acc[r] = fmaf(src[r * ld + k], wk, acc[r]);
         }
@@ -282,7 +298,7 @@ __device__ float* mlp(const Args& a, const float* wm, const float* bm,
           for (int r = 0; r < RT; ++r) {
             if (r < nr) {
               float x = acc[r] + bj;
-              if (!last) x = leaky(x);
+              if (!last) x = mlp_in<WT>(leaky(x));
               dst[r * ld] = x;
             }
           }
@@ -294,7 +310,7 @@ __device__ float* mlp(const Args& a, const float* wm, const float* bm,
 #pragma unroll
         for (int r = 0; r < RT; ++r) acc[r] = 0.f;
         for (int k = 0; k < din; ++k) {
-          const float wk = __ldg(W + (size_t)k * dout + j);
+          const float wk = ldw(W + (size_t)k * dout + j);
 #pragma unroll
           for (int r = 0; r < RT; ++r) acc[r] = fmaf(src[r * ld + k], wk, acc[r]);
         }
@@ -303,7 +319,7 @@ __device__ float* mlp(const Args& a, const float* wm, const float* bm,
         for (int r = 0; r < RT; ++r) {
           if (r < nr) {
             float x = acc[r] + bj;
-            if (!last) x = leaky(x);
+            if (!last) x = mlp_in<WT>(leaky(x));
             dst[r * ld + j] = x;
           }
         }
@@ -1066,7 +1082,7 @@ __device__ void rhs(const Args& a, const Smem<RT>& s, const WT* wm,
   else if constexpr (RING)
     out = mlp_ring<RT, WT>(a, wm, bm, rg, s.h0, s.h1);
   else
-    out = mlp<RT>(a, wm, bm, s.h0, s.h1, nr);
+    out = mlp<RT, WT>(a, wm, bm, s.h0, s.h1, nr);
   if (tid < nr) {
     const float v = s.v[tid];
     const float ga = ysrc[tid * 2], gr = ysrc[tid * 2 + 1];
@@ -1547,10 +1563,10 @@ cudaError_t launch_trip(Args& a, bool bf16, cudaStream_t stream) {
                           stream);
   if (!bf16) return launch_coop(trip_kernel<RT, float, PASS>, a, grid, smem,
                                 stream);
-  if constexpr (PASS == kRing && RT > 1)
-    return launch_coop(trip_kernel<RT, __nv_bfloat16, kRing>, a, grid, smem,
+  if constexpr (PASS == kGlobal || (PASS == kRing && RT > 1))
+    return launch_coop(trip_kernel<RT, __nv_bfloat16, PASS>, a, grid, smem,
                        stream);
-  return cudaErrorInvalidValue;  // bf16 runs only through the ring, RT >= 8
+  return cudaErrorInvalidValue;  // bf16 through the ring needs RT >= 8
 }
 
 // The trip kernel at row-tile instantiation RT, through the pass the entry
@@ -1559,7 +1575,7 @@ template <int RT>
 cudaError_t launch_trip_rt(Args& a, int ring, bool bf16, cudaStream_t s) {
   if (ring) return launch_trip<RT, kRing>(a, bf16, s);
   if (a.csize > 1) return launch_trip<RT, kCluster>(a, false, s);
-  return launch_trip<RT, kGlobal>(a, false, s);
+  return launch_trip<RT, kGlobal>(a, bf16, s);
 }
 
 template <int RT>
@@ -1675,8 +1691,6 @@ extern "C" int ionflux_trip_solve(
     }
     a.stage_bytes = stage_bytes;
     a.q_real = q_real < 1 || q_real > q ? q : q_real;
-  } else if (bf16) {
-    return (int)cudaErrorInvalidValue;
   }
   a.y0 = y0;
   a.w = w;
@@ -1697,6 +1711,8 @@ extern "C" int ionflux_trip_solve(
   cudaError_t err;
   if (ring && rt == 1 && !bf16)
     err = launch_trip<1, kRing>(a, false, s);
+  else if (!ring && rt == 1 && a.csize == 1)  // mlp() at one row per block
+    err = launch_trip<1, kGlobal>(a, bf16 != 0, s);
   else if (rt <= 8)
     err = launch_trip_rt<8>(a, ring, bf16 != 0, s);
   else if (rt <= 16)

@@ -4,30 +4,55 @@
 - ``simulate`` / ``simulate_family``: currents of one model on one protocol
   or a same-length family; ``backend="pallas"`` runs the fused sweep solve
   (``ops/fused_solve.fused_nnf_solve_ft``), the name kept so callers port
-  unchanged.
+  unchanged.  ``simulate_cases`` runs many (protocol, times) cases.
+- ``solve_states_long`` / ``simulate_long`` / ``solve_states_real``: one
+  model on a recorded protocol, the multi-sweep ones chained per sweep on
+  local f32 clocks (``solver/chained.odeint_chained``).
 - ``simulate_population``: P member nets x Q protocols through the fused
-  popsweep solve: the checkpoint-validation workload.
+  popsweep solve; ``simulate_population_real`` and
+  ``population_rollout_maes`` do it on the recorded protocols, chained over
+  segments (``ops/fused_solve.fused_nnf_popsweep_chained``): the
+  checkpoint-validation workload.  On the card the rollout MAEs' chain is
+  one CUDA graph.
 
-Everything follows the device of the tensors it is given.
+Everything follows the device of the tensors it is given; where no
+argument carries a tensor, ``device`` says where to run (the card unless
+the caller asks for the CPU).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ionflux_torch import protocols as P
-from ionflux_torch.models import hh_rhs, nnd_rhs, nnf_rhs
+from ionflux_torch import protorec
+from ionflux_torch._device import resolve_device
+from ionflux_torch.models import (
+    MARKOV_Y0_REST,
+    gt_a_rhs,
+    hh_rhs,
+    markov_rhs,
+    nnd_rhs,
+    nnf_rhs,
+)
 from ionflux_torch.models.registry import Constants
-from ionflux_torch.observe import gate_current
+from ionflux_torch.observe import gate_current, mae, markov_current
+from ionflux_torch.ops._build import Graph
 from ionflux_torch.ops.fused_solve import (
     POPSWEEP_SPLIT_ROWS,
     SWEEP_MAX_ROWS,
+    _dense_eval_popsweep_ft,
+    _rest,
+    _time_on,
+    fused_nnf_popsweep_chained,
     fused_nnf_popsweep_solve_ft,
     fused_nnf_solve_ft,
 )
-from ionflux_torch.solver import odeint
+from ionflux_torch.solver import odeint, odeint_chained
 
-_RHS = {"hh": hh_rhs, "nnf": nnf_rhs, "nnd": nnd_rhs}
+_RHS = {"hh": hh_rhs, "markov": markov_rhs, "nnf": nnf_rhs, "nnd": nnd_rhs,
+        "gta": gt_a_rhs}
 
 
 def _model_rhs(kind: str):
@@ -44,16 +69,40 @@ def _model_rhs(kind: str):
 
 
 def default_y0(kind: str, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Rest state after holding at -80 mV: (a, r) = (0, 1)."""
+    """Rest state after holding at -80 mV: (a, r) = (0, 1), or the Markov
+    model's ``MARKOV_Y0_REST`` (all in c2)."""
     if kind not in _RHS:
         raise ValueError(f"model kind {kind!r} is not ported")
+    if kind == "markov":
+        return torch.tensor(MARKOV_Y0_REST, dtype=dtype, device=device)
     return torch.tensor([0.0, 1.0], dtype=dtype, device=device)
+
+
+def _observe(kind: str, ys: torch.Tensor, v: torch.Tensor,
+             c: Constants) -> torch.Tensor:
+    """The observed current of states ys at voltages v."""
+    if kind == "markov":
+        return markov_current(ys, v, c)
+    return gate_current(ys, v, c)
+
+
+def _solve_device(params, y0, device) -> torch.device:
+    """Where a solve from a recording runs: ``device`` if given, else the
+    device of y0 or of an MLP's weights, else the card
+    (``resolve_device``; the HH and Markov parameters are host scalars)."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(y0, torch.Tensor):
+        return y0.device
+    net = getattr(params, "net", None)
+    return net.layers[0][0].device if net is not None else resolve_device(
+        None)
 
 
 def solve_states(kind: str, params, proto: P.Protocol, ts: torch.Tensor,
                  y0=None, rtol=1e-6, atol=1e-8, method: str | None = None,
                  **kw) -> torch.Tensor:
-    """States [T, 2] of one model on one protocol (method dopri5)."""
+    """States [T, S] of one model on one protocol (method dopri5)."""
     if method not in (None, "dopri5"):
         raise NotImplementedError(f"method {method!r} is not ported; only "
                                   f"dopri5")
@@ -68,7 +117,7 @@ def simulate(kind: str, params, proto: P.Protocol, ts: torch.Tensor,
              method: str | None = None, **kw) -> torch.Tensor:
     """Observed current [T] of one model on one protocol."""
     ys = solve_states(kind, params, proto, ts, y0, rtol, atol, method, **kw)
-    return gate_current(ys, P.voltage(proto, ts), c)
+    return _observe(kind, ys, P.voltage(proto, ts), c)
 
 
 def _family_voltage(b: P.Protocol, ts) -> torch.Tensor:
@@ -163,3 +212,344 @@ def _population_currents(nets, rg, hh, b: P.Protocol, ts, c: Constants, *,
         trips=kw.get("trips", 4096), base_hh=hh, cull=kw.get("cull", True),
         mxu_bf16=kw.get("mxu_bf16", False))                  # [P, Q, T, 2]
     return gate_current(ys, _family_voltage(b, ts)[None], c)
+
+
+# ---------------------------------------------------------------------------
+# One model on the recorded protocols
+# ---------------------------------------------------------------------------
+
+
+def pad_protocol(proto: P.Protocol, n_knots: int) -> P.Protocol:
+    """Extend a protocol to n_knots by repeating its final value.  The padded
+    knots lie past every query time, so results are unchanged."""
+    cur = proto.v.shape[-1]
+    if cur >= n_knots:
+        return proto
+    pad = proto.v[-1:].expand(n_knots - cur)
+    return P.Protocol(proto.t0, proto.dt, torch.cat([proto.v, pad]))
+
+
+def simulate_cases(kind: str, params, cases, c: Constants, **kw):
+    """Currents of many (protocol, ts) cases, each padded to the largest
+    knot count and output grid (repeating t_end) and sliced back, as the
+    reference does to share one compiled solve."""
+    n_knots = max(case[0].v.shape[-1] for case in cases)
+    n_ts = max(case[1].shape[-1] for case in cases)
+    out = []
+    for proto, ts in cases:
+        t_len = ts.shape[-1]
+        ts_pad = torch.cat([ts, ts[-1:].expand(n_ts - t_len)])
+        i = simulate(kind, params, pad_protocol(proto, n_knots), ts_pad, c,
+                     **kw)
+        out.append(i[:t_len])
+    return out
+
+
+def solve_states_long(kind: str, params, name: str, y0=None, rtol=1e-6,
+                      atol=1e-8, max_steps: int = 200_000,
+                      buffer_size: int = 16384, dtype=torch.float32,
+                      device=None) -> torch.Tensor:
+    """States [N, S] at every sample of a multi-sweep recording
+    (``protorec.SWEEPS``) by the segment-chained solve: one local f32 clock
+    per sweep, the state carried across sweeps.  A single f32 clock over
+    these 46-93 s recordings stalls (ulp(93,000 ms) ~ 0.008 ms).  Each
+    sweep's segment overlaps the next sweep's first sample, so it
+    integrates through the 0.1 ms ramp into it."""
+    n_sweeps, period = protorec.SWEEPS[name]
+    v, dt = protorec.load_voltage(name)
+    if len(v) != n_sweeps * period:
+        raise ValueError(f"{name}: {len(v)} samples, expected "
+                         f"{n_sweeps} x {period}")
+    vs = np.empty((n_sweeps, period + 1), v.dtype)
+    vs[:, :period] = v.reshape(n_sweeps, period)
+    vs[:-1, period] = vs[1:, 0]
+    vs[-1, period] = vs[-1, period - 1]
+    dev = _solve_device(params, y0, device)
+    protos = P.Protocol(
+        torch.zeros(n_sweeps, dtype=dtype, device=dev),
+        torch.full((n_sweeps,), dt, dtype=dtype, device=dev),
+        torch.as_tensor(vs, device=dev).to(dtype))
+    ts = (torch.arange(period + 1, dtype=dtype, device=dev)
+          * torch.tensor(dt, dtype=dtype, device=dev))
+    if y0 is None:
+        y0 = default_y0(kind, dtype, dev)
+    ys = odeint_chained(_model_rhs(kind), y0, ts, protos, params, rtol=rtol,
+                        atol=atol, max_steps=max_steps,
+                        buffer_size=buffer_size)         # [B, T + 1, S]
+    return ys[:, :-1, :].reshape(n_sweeps * period, -1)  # drop the overlap
+
+
+def simulate_long(kind: str, params, name: str, c: Constants, y0=None,
+                  dtype=torch.float32, device=None, **kw) -> torch.Tensor:
+    """Current [N] on a multi-sweep recording (see solve_states_long)."""
+    ys = solve_states_long(kind, params, name, y0, dtype=dtype,
+                           device=device, **kw)
+    v, _ = protorec.load_voltage(name)
+    vq = torch.as_tensor(v.reshape(-1), device=ys.device).to(dtype)
+    return _observe(kind, ys, vq, c)
+
+
+def solve_states_real(kind: str, params, name: str, y0=None,
+                      dtype=torch.float32, device=None, **kw) -> torch.Tensor:
+    """States on any recorded protocol: the multi-sweep ones through
+    ``solve_states_long``, single-segment ones (sinewave, APs) by one
+    adaptive solve on their full 0.1 ms grid (max_steps 400,000 and
+    buffer_size 32,768 unless given)."""
+    if name in protorec.SWEEPS:
+        return solve_states_long(kind, params, name, y0, dtype=dtype,
+                                 device=device, **kw)
+    dev = _solve_device(params, y0, device)
+    v, dt = protorec.load_voltage(name)
+    proto = protorec.protocol(name, dtype=dtype, device=dev)
+    ts = torch.as_tensor(np.arange(len(v)) * dt, device=dev).to(dtype)
+    kw.setdefault("max_steps", 400_000)
+    kw.setdefault("buffer_size", 32768)
+    return solve_states(kind, params, proto, ts, y0=y0, **kw)
+
+
+def report_mae(name: str, pred: torch.Tensor, truth: torch.Tensor,
+               fmt: str = "{name} | Total Loss {loss:.6f}") -> float:
+    """Print the reference's per-protocol loss line and return the MAE."""
+    loss = float(mae(torch.as_tensor(pred), torch.as_tensor(truth)))
+    print(fmt.format(name=name, loss=loss))
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# A population of nets on the recorded protocols (checkpoint validation)
+# ---------------------------------------------------------------------------
+
+
+def _segment_recordings(names: list[str], *, seg_samples: int, chunk: int,
+                        voltages: dict | None = None):
+    """The host-side segmentation both population paths share: the named
+    recordings (equal rate; ``voltages`` {name: (v, dt_ms)} stands in for
+    them) padded at their final value into knot segments seg_v [B, Q,
+    seg + 1], and each segment's sample voltages vsegs [B, Q, n_ch chunk],
+    edge-padded to whole chunks.  Returns (lens, dt, seg, n_seg, n_ch,
+    seg_v, vsegs)."""
+    vs, lens = [], []
+    dt = None
+    for n in names:
+        v, dti = (voltages[n] if voltages is not None
+                  else protorec.load_voltage(n))
+        if dt is not None and dti != dt:
+            raise ValueError(
+                f"mixed sample rates: {n} has dt={dti} ms but earlier "
+                f"protocols have dt={dt} ms; all Q rows share one clock")
+        dt = dti
+        vs.append(np.asarray(v, np.float32))
+        lens.append(len(v))
+    max_len = max(lens)
+    seg = min(int(seg_samples), max_len)
+    n_seg = -(-max_len // seg)
+    padded = np.empty((len(names), n_seg * seg + 1), np.float32)
+    for i, v in enumerate(vs):
+        padded[i, :lens[i]] = v
+        padded[i, lens[i]:] = v[-1]
+    seg_v = np.stack([padded[:, b * seg:b * seg + seg + 1]
+                      for b in range(n_seg)])            # [B, Q, seg + 1]
+    n_ch = -(-seg // chunk)
+    vsegs = np.empty((n_seg, len(names), n_ch * chunk), np.float32)
+    for b in range(n_seg):
+        end = min(b * seg + n_ch * chunk, padded.shape[1])
+        vsegs[b, :, :end - b * seg] = padded[:, b * seg:end]
+        vsegs[b, :, end - b * seg:] = padded[:, -1:]
+    return lens, dt, seg, n_seg, n_ch, seg_v, vsegs
+
+
+def _chunk_times(ci: int, chunk: int, dt: float, device) -> torch.Tensor:
+    """Local times of samples [ci chunk, (ci + 1) chunk) at dt (f32)."""
+    return (ci * chunk + torch.arange(chunk, dtype=torch.float32,
+                                      device=device)) * dt
+
+
+def _popsweep_segment_currents(rec_sc, rec_y, rec_k, n_acc, n_valid, mask,
+                               vseg, dt, c, q_req, n_ch, chunk):
+    """One segment's currents [P, Q_req, n_ch chunk] from the popsweep
+    record stream, evaluated a chunk at a time (the record gather stays
+    bounded); a dead lane's are inf."""
+    parts = []
+    for ci in range(n_ch):
+        ys = _dense_eval_popsweep_ft(
+            rec_sc, rec_y, rec_k, n_acc, n_valid,
+            _chunk_times(ci, chunk, dt, rec_sc.device))[:, :q_req]
+        vv = vseg[:q_req, ci * chunk:(ci + 1) * chunk]
+        parts.append(gate_current(ys, vv[None], c))      # [P, Qr, chunk]
+    ii = torch.cat(parts, dim=-1)
+    return torch.where(mask[:, :q_req, None], ii,
+                       torch.full_like(ii, float("inf")))
+
+
+def simulate_population_real(kind: str, pop_params, names: list[str],
+                             c: Constants, *, trips: int = 6144,
+                             seg_samples: int = 103_224,
+                             rtol: float = 1e-5, atol: float = 1e-7,
+                             cull: bool = True, chunk: int = 4096,
+                             voltages: dict | None = None) -> dict:
+    """Currents of a POPULATION of nets on the named recordings -> {name:
+    [P, N] numpy f32 at every sample}: the popsweep chained over
+    ``seg_samples``-long segments on local f32 clocks.  All P members x Q
+    protocols advance in the same launches; a protocol shorter than the
+    longest holds its final value and is sliced back to its own length.  A
+    (member, protocol) lane that died at any point is inf over its whole
+    trace.  NN-f / NN-d only.  ``voltages`` {name: (v_samples, dt_ms)}
+    stands in for the recordings."""
+    nets, rg, hh = _pop_split(kind, pop_params)
+    dev = nets[0][0].device
+    lens, dt, seg, n_seg, n_ch, seg_v, vsegs = _segment_recordings(
+        names, seg_samples=seg_samples, chunk=chunk, voltages=voltages)
+    vsegs = torch.as_tensor(vsegs, device=dev)
+    p_mem = nets[0][0].shape[0]
+    out = {n: np.empty((p_mem, ln), np.float32)
+           for n, ln in zip(names, lens)}
+    fin = {}
+
+    def consume(b, recs):
+        # deadness rides the chain (final_state carries NaN), so the last
+        # segment's mask is the survival flag
+        fin["mask"] = recs.mask[:, :len(names)]
+        ii = _popsweep_segment_currents(
+            recs.rec_sc, recs.rec_y, recs.rec_k, recs.n_acc, recs.n_valid,
+            recs.mask, vsegs[b], float(dt), c, len(names), n_ch,
+            chunk).cpu().numpy()
+        g0 = b * seg
+        for qi, n in enumerate(names):
+            lo, hi = g0, min(g0 + seg, lens[qi])
+            if lo < hi:
+                out[n][:, lo:hi] = ii[:, qi, :hi - lo]
+
+    fused_nnf_popsweep_chained(
+        nets, rg, torch.as_tensor(seg_v, device=dev), proto_dt=float(dt),
+        t_end=seg * float(dt), rtol=rtol, atol=atol, trips=trips,
+        base_hh=hh, cull=cull, consume=consume)
+    m = fin["mask"].cpu().numpy()
+    for qi, n in enumerate(names):
+        out[n][~m[:, qi]] = np.inf
+    return out
+
+
+def _popsweep_segment_reduce(nets, vknots, y0, vseg, tseg, wseg, acc, c, *,
+                             rg, hh, trips, rtol, atol, dt, t_end, q_req,
+                             n_ch, chunk, cull):
+    """One segment of the validation chain, all on the device: the popsweep
+    launch, its dense output a chunk at a time, and the weighted
+    |pred - truth| sums added to acc [P, Q_req].  Returns (acc, the final
+    state [P, Q_req, 2] for the next segment, the survival mask)."""
+    recs = fused_nnf_popsweep_solve_ft(
+        nets, rg, vknots, _time_on(vknots.device, t_end), proto_dt=dt,
+        t_end=t_end, rtol=rtol, atol=atol, trips=trips, base_hh=hh, y0=y0,
+        return_records=True, cull=cull)
+    sums = []
+    for ci in range(n_ch):
+        ys = _dense_eval_popsweep_ft(
+            recs.rec_sc, recs.rec_y, recs.rec_k, recs.n_acc, recs.n_valid,
+            _chunk_times(ci, chunk, dt, vknots.device))[:, :q_req]
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        ii = gate_current(ys, vseg[None, :q_req, sl], c)  # [P, Qr, chunk]
+        # where, not *: an out-of-span sample of a diverged lane would add
+        # inf * 0 = NaN
+        err = torch.where(wseg[None, :q_req, sl] > 0.5,
+                          (ii - tseg[None, :q_req, sl]).abs(),
+                          torch.zeros_like(ii))
+        sums.append(err.sum(dim=-1))
+    return (acc + torch.stack(sums).sum(dim=0), recs.final_state(t_end),
+            recs.mask[:, :q_req])
+
+
+# The rollout-MAE chains captured as CUDA graphs, by their shapes and
+# settings
+_ROLLOUT_GRAPHS: dict = {}
+
+
+def population_rollout_maes(kind: str, pop_params, names: list[str],
+                            c: Constants, truth: dict, *,
+                            spans: dict | None = None, trips: int = 6144,
+                            seg_samples: int = 103_224, rtol: float = 1e-5,
+                            atol: float = 1e-7, cull: bool = True,
+                            chunk: int = 4096,
+                            voltages: dict | None = None,
+                            graph: bool = True) -> np.ndarray:
+    """Rollout MAEs [P, len(names)] of a POPULATION of nets against the
+    target traces ``truth`` {name: [>= N]}: simulate_population_real's
+    chained integration, with the |pred - truth| reduction on the device.
+    Only the [P, Q] sums and the y0 carry pass between segments, and the
+    host fetches them once at the end: no host synchronisation inside the
+    chain.  ``spans`` {name: (lo, hi)} scores a sample interval (table 1's
+    Pr4 scores sweeps 1-3); a segment scores only its own [g0, g0 + seg)
+    samples, never the chunk padding past them.  A lane that died at any
+    point scores inf; a NaN sum stays NaN for the caller's rescore.
+
+    On a CUDA device (``graph``, the default) the first call runs the chain
+    eagerly and captures it as one CUDA graph per (shapes, names, trips,
+    chunk and settings); each later call copies its weights and targets
+    into the graph's inputs and replays it (the replay equals the eager
+    chain bit for bit; ``graph=False`` runs it eagerly)."""
+    nets, rg, hh = _pop_split(kind, pop_params)
+    dev = nets[0][0].device
+    lens, dt, seg, n_seg, n_ch, seg_v, vsegs = _segment_recordings(
+        names, seg_samples=seg_samples, chunk=chunk, voltages=voltages)
+    q_req = len(names)
+    p_mem = nets[0][0].shape[0]
+    tsegs = np.zeros((n_seg, q_req, n_ch * chunk), np.float32)
+    wsegs = np.zeros((n_seg, q_req, n_ch * chunk), np.float32)
+    counts = np.empty(q_req, np.float64)
+    for qi, n in enumerate(names):
+        tr = np.asarray(truth[n], np.float32)
+        if tr.shape[0] < lens[qi]:
+            raise ValueError(f"truth[{n!r}] has {tr.shape[0]} samples, "
+                             f"protocol has {lens[qi]}")
+        lo, hi = (spans or {}).get(n, (0, lens[qi]))
+        lo, hi = max(int(lo), 0), min(int(hi), lens[qi])
+        counts[qi] = max(hi - lo, 1)
+        for b in range(n_seg):
+            g0 = b * seg
+            e = min(g0 + n_ch * chunk, lens[qi])
+            if g0 < e:
+                tsegs[b, qi, :e - g0] = tr[g0:e]
+            # score only this segment's own samples: the chunk padding past
+            # seg comes again at the head of the next segment's grid
+            slo, shi = max(lo - g0, 0), min(hi - g0, seg)
+            if slo < shi:
+                wsegs[b, qi, slo:shi] = 1.0
+
+    kw = dict(c=c, rg=rg, hh=hh, trips=int(trips), rtol=float(rtol),
+              atol=float(atol), dt=float(dt), t_end=seg * float(dt),
+              q_req=q_req, n_ch=n_ch, chunk=int(chunk), cull=bool(cull))
+
+    def chain(seg_v, vsegs, tsegs, wsegs, *weights):
+        layers = list(zip(weights[0::2], weights[1::2]))
+        y0 = _rest(p_mem, q_req, seg_v.device)
+        acc = torch.zeros((p_mem, q_req), dtype=torch.float32,
+                          device=seg_v.device)
+        mask = None
+        for b in range(seg_v.shape[0]):
+            acc, y0, mask = _popsweep_segment_reduce(
+                layers, seg_v[b], y0, vsegs[b], tsegs[b], wsegs[b], acc,
+                **kw)
+        return acc, mask
+
+    inputs = [torch.as_tensor(x, device=dev)
+              for x in (seg_v, vsegs, tsegs, wsegs)]
+    inputs += [x for layer in nets for x in layer]
+    if dev.type == "cuda" and graph:
+        key = (str(dev), kind, tuple(names), int(trips), int(chunk),
+               tuple(tuple(x.shape) for x in inputs),
+               tuple(float(x) for x in rg),
+               None if hh is None else tuple(float(x) for x in hh),
+               tuple(float(x) for x in c), float(dt), float(rtol),
+               float(atol), bool(cull))
+        g = _ROLLOUT_GRAPHS.get(key)
+        if g is None:
+            acc, mask = chain(*inputs)
+            _ROLLOUT_GRAPHS[key] = Graph(chain,
+                                         *[x.clone() for x in inputs])
+        else:
+            for dst, src in zip(g.inputs, inputs):
+                dst.copy_(src)
+            acc, mask = g.replay()
+    else:
+        acc, mask = chain(*inputs)
+    sums = acc.cpu().numpy().astype(np.float64)
+    alive = mask.cpu().numpy()
+    return np.where(alive, sums / counts[None, :], np.inf)

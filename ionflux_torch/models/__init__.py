@@ -1,4 +1,5 @@
 from ionflux_torch.models import registry
+from ionflux_torch.models.gt_a import gt_a_coeffs, gt_a_rhs
 from ionflux_torch.models.hh import a_gate_rhs, hh_rates, hh_rhs, r_gate_rhs
 from ionflux_torch.models.markov import (
     MARKOV_Y0_INACT,
@@ -22,6 +23,8 @@ from ionflux_torch.models.nn import (
 
 __all__ = [
     "registry",
+    "gt_a_coeffs",
+    "gt_a_rhs",
     "hh_rhs",
     "hh_rates",
     "a_gate_rhs",

@@ -37,8 +37,6 @@ def _check(w: torch.Tensor, b: torch.Tensor) -> None:
     if three != 3 or tuple(b.shape) != (p, m):
         raise ValueError(f"w must be [P, 3, M] and b [P, M]; got "
                          f"{tuple(w.shape)} and {tuple(b.shape)}")
-    if ROWS * m > 1024:
-        raise ValueError(f"M = {m}: the kernel takes ROWS x M <= 1024")
     if b.device != w.device:
         raise ValueError(f"w is on {w.device}, b on {b.device}")
 
@@ -67,8 +65,9 @@ def bias_probe_plain(w: torch.Tensor, b: torch.Tensor,
 def bias_probe(w: torch.Tensor, b: torch.Tensor,
                fold: bool = False) -> torch.Tensor:
     """The probe: out [P, 128].  CUDA tensors run the kernel (one thread
-    block per member); CPU tensors run ``bias_probe_plain``.  Raises on a
-    refused launch; never synchronises."""
+    per member and row, P x ROWS threads in one launch); CPU tensors run
+    ``bias_probe_plain``.  Raises on a refused launch; never
+    synchronises."""
     if not w.is_cuda:
         return bias_probe_plain(w, b, fold)
     _check(w, b)

@@ -6,7 +6,9 @@ shared step controller (counterpart of four kernels of
   one shared MLP over B <= 128 protocols, from rest, no cull.
 - ``fused_nnf_popsweep_solve_ft`` (replaces
   ``pallas_solve.py::fused_nnf_popsweep_solve_ft``): P member MLPs x Q
-  protocols, with a y0 carry and the pace cull.
+  protocols, with a y0 carry and the pace cull;
+  ``fused_nnf_popsweep_chained`` chains it over the segments of long
+  recordings.
 - ``fused_nnf_pop_solve_ft`` (replaces
   ``pallas_solve.py::fused_nnf_pop_solve_ft``): P member MLPs on ONE shared
   protocol, from rest, no cull.
@@ -400,6 +402,12 @@ def ring_fits(row_tile: int, sizes, bf16: bool) -> bool:
                              for d in sizes[1:])
 
 
+def _ring_tile(row_tile: int, sizes, bf16: bool) -> int | None:
+    """``ring_row_tile``'s tile, or None where no tile fits."""
+    return next((rt for rt in (row_tile, 16, 8, 1)
+                 if rt <= row_tile and ring_fits(rt, sizes, bf16)), None)
+
+
 def ring_row_tile(row_tile: int, sizes, bf16: bool) -> int:
     """The size rule of the population launches' layer pass (B1 in both
     modes, B4): the rows a block takes, ``row_tile`` (what Q and q_split
@@ -409,13 +417,58 @@ def ring_row_tile(row_tile: int, sizes, bf16: bool) -> int:
     on the tile (each row's sums run in one order).  A d1-sized or 500-wide
     net keeps ``row_tile``; a (2, w, w, 1) net fits up to w = 11,512 in
     f32 (one row) and 952 in bf16 (8 rows).  Raises for a net no tile
-    takes."""
+    takes (``population_pass`` then takes mlp())."""
+    rt = _ring_tile(row_tile, sizes, bf16)
+    if rt is None:
+        raise ValueError(
+            f"the ring pass cannot hold a layer {max(sizes)} wide in a "
+            f"block's shared memory ({'bf16' if bf16 else 'f32'})")
+    return rt
+
+
+def mlp_smem_bytes(row_tile: int, wmax: int) -> int:
+    """Dynamic shared memory of one block of the mlp() pass: two row-major
+    activation buffers [RT, wmax] f32 and the lane state at the kernel's
+    instantiation for ``row_tile`` rows, as csrc/fused_solve.cu's Smem lays
+    them out: 8 RT wmax + 96 RT bytes."""
+    rt = _tile_rt(row_tile)
+    return 4 * (2 * rt * wmax + 7 * rt * 2 + 3 * rt * 2 + 2 * rt) + 4 * 2 * rt
+
+
+def mlp_row_tile(row_tile: int, sizes) -> int:
+    """The rows per block of the population launches' second layer pass,
+    mlp() (each member's weights read from L2 and HBM, no ring): the
+    largest of ``row_tile``, 16, 8 and 1, at most ``row_tile``, whose
+    activation buffers and lane state fit a block.  The one-row block holds
+    8 wmax + 96 bytes, so a layer wider than (232,448 - 1,024 - 96) / 8 =
+    28,916 fits no tile: that raises ``ValueError``, the stated limit of
+    the population kernels on the card."""
+    room = _SMEM_BYTES - _SMEM_STATIC
+    wmax = max(sizes)
     for rt in (row_tile, 16, 8, 1):
-        if rt <= row_tile and ring_fits(rt, sizes, bf16):
+        if rt <= row_tile and mlp_smem_bytes(rt, wmax) <= room:
             return rt
     raise ValueError(
-        f"the ring pass cannot hold a layer {max(sizes)} wide in a block's "
-        f"shared memory ({'bf16' if bf16 else 'f32'})")
+        f"no layer pass holds a layer {wmax} wide: mlp()'s one-row block "
+        f"needs 8 x {wmax} + 96 = {mlp_smem_bytes(1, wmax)} bytes of "
+        f"shared memory for its two activation buffers and lane state, "
+        f"over the {room} a block may take (the ring pass held none "
+        f"either)")
+
+
+def population_pass(row_tile: int, sizes, bf16: bool) -> tuple[int, dict]:
+    """The size rule of the population launches (B1 in both modes, B4),
+    decided from the widths before any launch: the ring pass at
+    ``ring_row_tile``'s tile where a tile fits, else mlp() at
+    ``mlp_row_tile``'s (past 11,512 wide in f32, 952 in bf16, for a (2, w,
+    w, 1) net), else ``ValueError``.  Returns the row tile and the pass as
+    ``last_pass`` names it."""
+    rt = _ring_tile(row_tile, sizes, bf16)
+    if rt is not None:
+        return rt, dict(layer_pass="ring", row_tile=rt,
+                        column_passes=ring_column_passes(rt, sizes, bf16))
+    rt = mlp_row_tile(row_tile, sizes)
+    return rt, dict(layer_pass="mlp", row_tile=rt)
 
 
 def ring_column_passes(row_tile: int, sizes, bf16: bool) -> int:
@@ -593,38 +646,39 @@ def _pass_info(csize: int, units: int) -> dict:
 def launch_plan(s: _Setup) -> tuple[int, dict]:
     """How a trip launch runs on the card: the rows per thread block (or
     cluster) and the layer pass, by the stated rules.  The popsweep and the
-    population solve take the ring pass at ``ring_row_tile``'s tile; the
-    sweep takes ``sweep_cluster``'s pass (or what ``s.cluster`` forces).
-    The dict names the pass: {"layer_pass": "ring", "row_tile",
-    "column_passes"} or ``_pass_info``'s fields."""
+    population solve take ``population_pass``'s (the ring, or mlp() for
+    layers too wide for it); the sweep takes ``sweep_cluster``'s pass (or
+    what ``s.cluster`` forces).  The dict names the pass: {"layer_pass":
+    "ring", "row_tile", "column_passes"}, {"layer_pass": "mlp", "row_tile"}
+    or ``_pass_info``'s fields."""
     p, q = s.y0.shape[:2]
     sizes = [s.layers[0][0].shape[1]] + [w.shape[2] for w, _ in s.layers]
     row_tile = min(MAX_ROW_TILE, q // s.q_split)
     if s.ring:
-        row_tile = ring_row_tile(row_tile, sizes, s.bf16)
-        return row_tile, dict(
-            layer_pass="ring", row_tile=row_tile,
-            column_passes=ring_column_passes(row_tile, sizes, s.bf16))
+        return population_pass(row_tile, sizes, s.bf16)
     return row_tile, _pass_info(_sweep_pass(s, row_tile),
                                 p * -(-q // row_tile))
 
 
-def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE):
+def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE,
+                   layer_pass: str | None = None):
     """What both CUDA entry points take besides the outputs: the weights as
     one flat row per member (bf16 when ``s.bf16``): W0, W1, ... row-major
-    [in, out] for mlp(), ``_ring_pack``'s layout with ``s.ring``, or
+    [in, out] for mlp(), ``_ring_pack``'s layout for the ring, or
     ``_cluster_pack``'s rows for the sweeps' cluster pass; the ring's
     geometry (or None), the biases in f32, the layer widths, the 16 scalars
     and the cluster pass's (blocks per cluster, geometry, floats per rank),
     (0, None, 0) for the other passes.  ``row_tile`` sizes the ring's
-    stages and decides the sweeps' pass; ``launch_plan`` gives it."""
+    stages and decides the sweeps' pass; ``launch_plan`` gives it and the
+    ``layer_pass`` (by default the ring for the population launches)."""
     if len(s.layers) > 16:
         raise ValueError("the CUDA kernel takes at most 16 layers")
     p = s.y0.shape[0]
     sizes = [s.layers[0][0].shape[1]] + [w.shape[2] for w, _ in s.layers]
+    use_ring = layer_pass == "ring" or (layer_pass is None and s.ring)
     csize = 0 if s.ring else _sweep_pass(s, row_tile)
     cluster = (0, None, 0)
-    if s.ring:
+    if use_ring:
         if not ring_fits(row_tile, sizes, s.bf16):
             raise ValueError(f"the ring pass does not take this net at "
                              f"{row_tile} rows: use launch_plan's tile")
@@ -639,6 +693,8 @@ def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE):
                    stride)
     else:
         wflat = torch.cat([w.reshape(p, -1) for w, _ in s.layers], dim=1)
+        if s.bf16:        # exact: the setup rounded the weights
+            wflat = wflat.to(torch.bfloat16)
         ring = None
     bflat = torch.cat([b.reshape(p, -1) for _, b in s.layers], dim=1)
     p1, p2, p3, p4 = s.base_a if s.base_a else (0.0, 0.0, 0.0, 0.0)
@@ -665,7 +721,8 @@ def _trip_solve_cuda(s: _Setup):
     dev = s.vpad.device
     p, q = s.y0.shape[:2]
     row_tile, info = launch_plan(s)
-    wflat, ring, bflat, c_sizes, scal, cluster = _kernel_inputs(s, row_tile)
+    wflat, ring, bflat, c_sizes, scal, cluster = _kernel_inputs(
+        s, row_tile, info["layer_pass"])
     geom, stage = ring if ring else (None, 0)
     grid = p * -(-q // row_tile)     # blocks, or clusters
     rec_sc = torch.empty((s.trips, 2), dtype=torch.float32, device=dev)
@@ -682,7 +739,7 @@ def _trip_solve_cuda(s: _Setup):
             rec_sc.data_ptr(), rec_y.data_ptr(), rec_k.data_ptr(),
             n_out.data_ptr(), alive.data_ptr(), partial.data_ptr(), c_sizes,
             len(s.layers), p, q, s.vpad.shape[1], row_tile, s.trips,
-            s.block, int(s.cull), int(bool(s.base_a)), scal, int(s.ring),
+            s.block, int(s.cull), int(bool(s.base_a)), scal, int(bool(ring)),
             geom, stage, s.q_real, *cluster)
     _trip_solve_cuda.last_pass = info
     return rec_sc, rec_y, rec_k, n_out, alive.bool()
@@ -697,6 +754,18 @@ _trip_solve_cuda.last_pass = None
 
 _DENSE_CHUNK_ELEMS = 1 << 24   # bound on the [T, 7, P, Q, 2] record gather
 _P_DENSE_ON = {}               # device -> Shampine's quartic coefficients
+_TIMES_ON = {}                 # (device, t) -> the one-time tensor [t]
+
+
+def _time_on(device, t: float) -> torch.Tensor:
+    """The f32 tensor [t] on ``device``, made there once: a chain of launches
+    that asks for y(t_end) makes no host-to-device copy, so a CUDA graph can
+    capture it.  Read-only."""
+    key = (device, float(t))
+    if key not in _TIMES_ON:
+        _TIMES_ON[key] = torch.tensor([float(t)], dtype=torch.float32,
+                                      device=device)
+    return _TIMES_ON[key]
 
 
 def _p_dense(device) -> torch.Tensor:
@@ -867,10 +936,9 @@ class PopsweepRecords:
     def final_state(self, t_end: float) -> torch.Tensor:
         """y(t_end) [P, Q_req, 2]; dead lanes carry NaN, so a next launch
         that takes it as y0 starts them dead."""
-        ts = torch.tensor([t_end], dtype=torch.float32,
-                          device=self.rec_sc.device)
         ys = _dense_eval_popsweep_ft(self.rec_sc, self.rec_y, self.rec_k,
-                                     self.n_acc, self.n_valid, ts)
+                                     self.n_acc, self.n_valid,
+                                     _time_on(self.rec_sc.device, t_end))
         return torch.where(self.mask[:, :self.q_req, None],
                            ys[:, :self.q_req, 0, :],
                            torch.full_like(ys[:, :self.q_req, 0, :],
@@ -996,6 +1064,47 @@ def fused_nnf_popsweep_solve_ft_plain(
                      trips=trips, base_hh=base_hh, y0=y0,
                      return_records=return_records, cull=cull,
                      mxu_bf16=mxu_bf16, q_split=q_split, plain=True)
+
+
+def fused_nnf_popsweep_chained(
+    nets, rgate: HHParams, seg_v: torch.Tensor, *, proto_dt: float = 0.1,
+    t_end: float | None = None, rtol: float = 1e-5, atol: float = 1e-7,
+    trips: int = 6144, base_hh: HHParams | None = None,
+    y0: torch.Tensor | None = None, cull: bool = True,
+    mxu_bf16: bool = False, q_split: int = 1, consume=None,
+    ts: torch.Tensor | None = None,
+):
+    """The popsweep chained over the segments of long recordings: one
+    ``fused_nnf_popsweep_solve_ft`` launch per segment of ``seg_v`` [B, Q,
+    L] on a local f32 clock from 0 to ``t_end`` (default (L - 1) proto_dt,
+    or ts[-1]), each segment's final state the next one's y0 (NaN carries a
+    dead lane into the next launch dead).  Segment edges need not fall on
+    sweep edges.  ``consume(b, recs)`` takes each segment's
+    ``PopsweepRecords`` (dense-evaluate or reduce there); without it the
+    segments are evaluated at the local times ``ts``.  Makes no host
+    synchronisation itself.  Returns (None with ``consume``, else ys [B, P,
+    Q, T, 2]; y_final [P, Q, 2])."""
+    if consume is None and ts is None:
+        raise ValueError("fused_nnf_popsweep_chained needs either a consume "
+                         "callback or local output times ts")
+    if t_end is None:
+        t_end = (float(ts[-1]) if ts is not None
+                 else (seg_v.shape[2] - 1) * float(proto_dt))
+    t_dev = _time_on(seg_v.device, t_end)
+    outs = []
+    for b in range(seg_v.shape[0]):
+        recs = fused_nnf_popsweep_solve_ft(
+            nets, rgate, seg_v[b], t_dev, proto_dt=proto_dt, t_end=t_end,
+            rtol=rtol, atol=atol, trips=trips, base_hh=base_hh, y0=y0,
+            return_records=True, cull=cull, mxu_bf16=mxu_bf16,
+            q_split=q_split)
+        y0 = recs.final_state(t_end)
+        if consume is not None:
+            consume(b, recs)
+        else:
+            outs.append(recs.evaluate(ts))
+        del recs          # the next segment reuses its record buffers
+    return (None if consume is not None else torch.stack(outs)), y0
 
 
 # ---------------------------------------------------------------------------

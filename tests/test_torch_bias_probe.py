@@ -86,7 +86,7 @@ def test_probe_plain_matches_pallas_interpret(case):
     np.testing.assert_allclose(out.numpy(), other.numpy(), atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("bad", ["f64 w", "w rows", "b shape", "wide M"])
+@pytest.mark.parametrize("bad", ["f64 w", "w rows", "b shape", "f64 b"])
 def test_probe_refuses_bad_inputs(bad):
     w, b = S.probe_inputs("cpu")
     if bad == "f64 w":
@@ -96,6 +96,6 @@ def test_probe_refuses_bad_inputs(bad):
     elif bad == "b shape":
         b = b[:-1]
     else:
-        w, b = torch.zeros(P, 3, 65), torch.zeros(P, 65)
+        b = b.double()
     with pytest.raises((TypeError, ValueError)):
         TB.bias_probe(w, b)

@@ -55,13 +55,13 @@ def test_port_imports_neither_jax_nor_ionflux():
         "    importlib.import_module(n)\n"
         "for n in ('models.markov', 'protorec', 'solver.chained',\n"
         "          'ops.hh_solve', 'ops._build', 'fit.cmaes',\n"
-        "          'ops.fused_solve', 'ops.bias_probe'):\n"
+        "          'ops.fused_solve', 'ops.bias_probe', 'models.gt_a'):\n"
         "    assert 'ionflux_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
         "import train_d0_torch, probe_mosaic_bias_fault_torch\n"
-        "import time_forward_torch, probe_ring_pass_torch\n"
-        "import probe_cluster_launch_torch\n"
+        "import time_forward_torch, probe_ring_pass_torch, time_probe_torch\n"
+        "import probe_cluster_launch_torch, probe_validation_chain_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ionflux'))\n"
         "assert not bad, bad\n"
@@ -623,8 +623,8 @@ def test_ring_pass_takes_500_wide_members_on_card(card, entry):
     the running sums parked in shared memory (one at one row per block).
     Kernel against plain within 5e-3 on the gates, in f32 and bf16 and
     through the population solve.  In bf16 a 1,000-wide net, past the ring
-    pass's widest layer (ROADMAP Queue C, open), is still refused before any
-    launch."""
+    pass's widest layer, takes the mlp() pass (launch_plan's second
+    branch) at 16-row tiles, within 5e-3 of plain too."""
     nets = [(w * (16 / 500) ** 0.5, b) for w, b in _net(
         seed=5, members=4, sizes=(2, 500, 500, 1), device=card)]
     ts = torch.arange(50.0, 8000.0, 100.0, device=card)
@@ -648,11 +648,131 @@ def test_ring_pass_takes_500_wide_members_on_card(card, entry):
     assert bool(torch.isfinite(ys_p).all())
     _close_on_card(ys_k, ys_p)
     if entry == "bf16":
-        wide = _net(seed=5, members=4, sizes=(2, 1000, 1000, 1), device=card)
+        wide = [(w * (16 / 1000) ** 0.5, b) for w, b in _net(
+            seed=5, members=4, sizes=(2, 1000, 1000, 1), device=card)]
         before = TK.fused_nnf_popsweep_solve_ft.launches
-        with pytest.raises(ValueError, match="ring pass"):
-            TK.fused_nnf_popsweep_solve_ft(wide, TR.HH_B06, v, ts, **kw)
-        assert TK.fused_nnf_popsweep_solve_ft.launches == before
+        ys_k = TK.fused_nnf_popsweep_solve_ft(wide, TR.HH_B06, v, ts, **kw)
+        torch.cuda.synchronize()
+        assert TK.fused_nnf_popsweep_solve_ft.launches == before + 1
+        assert TK._trip_solve_cuda.last_pass == dict(layer_pass="mlp",
+                                                     row_tile=16)
+        ys_p = TK.fused_nnf_popsweep_solve_ft_plain(wide, TR.HH_B06, v, ts,
+                                                    **kw)
+        assert bool(torch.isfinite(ys_p).all())
+        _close_on_card(ys_k, ys_p)
+
+
+def _wide_members(card, p, width):
+    """p members of a (2, width, width, 1) net made on the card from a
+    seeded generator: weights 0.1 sqrt(16 / fan-in) N(0, 1), biases 0.01
+    N(0, 1) (activations stay O(1) through the wide layer)."""
+    gen = torch.Generator(device=card).manual_seed(width)
+    sizes = (2, width, width, 1)
+    return [(torch.randn(p, a, b, generator=gen, device=card)
+             * (0.1 * (16 / max(a, 16)) ** 0.5),
+             0.01 * torch.randn(p, b, generator=gen, device=card))
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,width,row_tile", [
+    ("popsweep", 11_520, 1), ("bf16", 960, 16), ("population", 11_520, 1)])
+def test_population_launches_take_mlp_past_the_ring_on_card(card, entry,
+                                                            width, row_tile):
+    """Layers just past the ring pass's widest (11,512 in f32, 952 in bf16):
+    launch_plan sends the launch through mlp() at the largest row tile
+    whose activation buffers fit, names it in last_pass, and the kernel is
+    within 5e-3 of plain on the gates.  A short protocol at 1 ms knots
+    (50 ms at -80 mV, 100 ms at +20, back to -80 until 200 ms): mlp() reads
+    each f32 member's 531 MB of weights from HBM six times a trip."""
+    v = torch.full((201,), -80.0, device=card)
+    v[50:150] = 20.0
+    ts = torch.arange(5.0, 200.0, 10.0, device=card)
+    kw = dict(proto_dt=1.0, trips=1024)
+    if entry == "population":
+        nets = _wide_members(card, 2, width)
+        kern, plain = TK.fused_nnf_pop_solve_ft, TK.fused_nnf_pop_solve_ft_plain
+    else:
+        nets = _wide_members(card, 4 if entry == "bf16" else 2, width)
+        levels = (-60.0, -20.0, 0.0, 20.0, 40.0) if entry == "bf16" else (
+            -20.0, 40.0)
+        v = torch.stack([torch.where(v > 0, x, v) for x in levels] + (
+            [v] * 4 if entry == "bf16" else []))        # 9 rows in bf16
+        kw["mxu_bf16"] = entry == "bf16"
+        kern = TK.fused_nnf_popsweep_solve_ft
+        plain = TK.fused_nnf_popsweep_solve_ft_plain
+    before = kern.launches
+    ys_k = kern(nets, TR.HH_B06, v, ts, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert TK._trip_solve_cuda.last_pass == dict(layer_pass="mlp",
+                                                 row_tile=row_tile)
+    ys_p = plain(nets, TR.HH_B06, v, ts, **kw)
+    assert bool(torch.isfinite(ys_p).all())
+    _close_on_card(ys_k, ys_p)
+
+
+def _standin_population(card, members=4):
+    """``members`` nets of 2 x 64 x 64 x 1 and test_pallas.py's stand-in
+    recordings (6,001 and 3,501 samples at 1 ms) with noisy targets."""
+    from ionflux_torch import eval as TE
+
+    layers = _net(seed=3, members=members, sizes=(2, 64, 64, 1), device=card)
+    pop = TN.NNfParams(TN.MLP(layers), TR.HH_B06)
+    volts = {n: (TP.activation_protocol(x, 1.0, device="cpu").v[:ln].numpy(),
+                 1.0) for n, x, ln in (("a", 20.0, 6001), ("b", -30.0, 3501))}
+    kw = dict(trips=1024, seg_samples=2048, chunk=512, voltages=volts)
+    cur = TE.simulate_population_real("nnf", pop, ["a", "b"], TR.SYNTHETIC,
+                                      **kw)
+    rs = np.random.RandomState(0)
+    truth = {n: cur[n][0] + 0.01 * rs.randn(cur[n].shape[1]) for n in cur}
+    return TE, pop, truth, cur, kw
+
+
+@pytest.mark.cuda
+def test_population_real_kernel_matches_plain_on_card(card):
+    """simulate_population_real through the chained popsweep kernel against
+    the plain chain on the CPU: the currents within 5e-3 x 126 mV."""
+    TE, pop, _, cur, kw = _standin_population(card)
+    cpu = TN.NNfParams(TN.MLP([(w.cpu(), b.cpu()) for w, b in
+                               pop.net.layers]), TR.HH_B06)
+    ref = TE.simulate_population_real("nnf", cpu, ["a", "b"], TR.SYNTHETIC,
+                                      **kw)
+    for n in cur:
+        assert np.isfinite(cur[n]).all()
+        assert float(np.abs(cur[n] - ref[n]).max()) <= CARD_TOL * 126
+
+
+@pytest.mark.cuda
+def test_rollout_maes_graph_replays_the_eager_chain_on_card(card):
+    """population_rollout_maes on the card: the first call runs the chain
+    eagerly (one popsweep launch per segment) and captures it as one CUDA
+    graph; each later call copies its weights and targets in and replays
+    it, bit for bit equal to the eager chain (graph=False), for the first
+    weights and for new ones; each replay counts its segments' launches."""
+    TE, pop, truth, _, kw = _standin_population(card)
+    names = ["a", "b"]
+    k = TK.fused_nnf_popsweep_solve_ft
+    TE._ROLLOUT_GRAPHS.clear()
+    before = k.launches
+    first = TE.population_rollout_maes("nnf", pop, names, TR.SYNTHETIC, truth,
+                                       spans={"b": (500, 3000)}, **kw)
+    assert k.launches == before + 3 and len(TE._ROLLOUT_GRAPHS) == 1
+    replay = TE.population_rollout_maes("nnf", pop, names, TR.SYNTHETIC,
+                                        truth, spans={"b": (500, 3000)}, **kw)
+    assert k.launches == before + 6
+    eager = TE.population_rollout_maes("nnf", pop, names, TR.SYNTHETIC, truth,
+                                       spans={"b": (500, 3000)}, graph=False,
+                                       **kw)
+    assert np.isfinite(first).all()
+    assert np.array_equal(first, replay) and np.array_equal(eager, replay)
+    other = TN.NNfParams(TN.MLP([(w * 1.01, b) for w, b in pop.net.layers]),
+                         TR.HH_B06)
+    got = [TE.population_rollout_maes("nnf", other, names, TR.SYNTHETIC,
+                                      truth, graph=g, **kw)
+           for g in (True, False)]
+    assert len(TE._ROLLOUT_GRAPHS) == 1 and not np.array_equal(got[0], first)
+    assert np.array_equal(got[0], got[1])
 
 
 # The sweeps' layer passes (B2, B6): the cluster pass (weights in a

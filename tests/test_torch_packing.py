@@ -219,7 +219,47 @@ def test_ring_pass_takes_wider_layers(entry):
 
 
 WIDE = [D1, (2, 256, 256, 1), (2, 300, 300, 1), (2, 500, 500, 500, 1),
-        (2, 800, 800, 1), (2, 2000, 2000, 1)]
+        (2, 800, 800, 1), (2, 960, 960, 1), (2, 2000, 2000, 1),
+        (2, 11520, 11520, 1), (2, 28916, 28916, 1), (2, 28917, 28917, 1)]
+RING_WIDEST = {False: 11_512, True: 952}    # a (2, w, w, 1) net
+BLOCK_SMEM = 232448 - 1024                  # what a launch gives a block
+
+
+def _shape_only_setup(sizes, q, bf16):
+    """A popsweep setup of one member and q rows whose layers are stride-0
+    views: launch_plan reads only shapes, so no wide net is allocated."""
+    layers = [(torch.zeros(1, 1, 1).expand(1, a, b),
+               torch.zeros(1, 1).expand(1, b))
+              for a, b in zip(sizes[:-1], sizes[1:])]
+    return TK._Setup(layers=layers, vpad=torch.zeros(q, 384),
+                     y0=torch.zeros(1, q, 2), gate=(0.0,) * 4, base_a=(),
+                     t0=0.0, dt_knot=1.0, t_end=1.0, rtol=1e-5, atol=1e-7,
+                     trips=256, block=256, cull=True, bf16=bf16, ring=True)
+
+
+def _check_mlp_branch(asked, sizes, bf16):
+    """launch_plan's second branch, past the ring's rule: mlp() at the
+    largest of (asked, 16, 8, 1) whose two row-major activation buffers
+    and lane state (8 RT w + 96 RT bytes at the instantiation RT) fit a
+    block; past one row's fit (w > 28,916) a ValueError with the
+    arithmetic."""
+    wmax = max(sizes)
+    s = _shape_only_setup(sizes, asked, bf16)
+    if 8 * wmax + 96 > BLOCK_SMEM:
+        for plan in (lambda: TK.population_pass(asked, list(sizes), bf16),
+                     lambda: TK.launch_plan(s)):
+            with pytest.raises(ValueError, match="no layer pass"):
+                plan()
+        assert wmax > 28_916
+        return
+    rt, info = TK.population_pass(asked, list(sizes), bf16)
+    assert info == dict(layer_pass="mlp", row_tile=rt) and rt <= asked
+    assert TK.launch_plan(s) == (rt, info)
+    inst = next(t for t in (1, 8, 16, 32) if rt <= t)
+    assert TK.mlp_smem_bytes(rt, wmax) == 8 * inst * wmax + 96 * inst
+    assert TK.mlp_smem_bytes(rt, wmax) <= BLOCK_SMEM
+    assert all(TK.mlp_smem_bytes(t, wmax) > BLOCK_SMEM
+               for t in (asked, 16, 8) if rt < t <= asked)
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
@@ -230,13 +270,20 @@ def test_ring_row_tile_rule(sizes, bf16):
     largest smaller tile that fits (never 1 in bf16: the mma's rows); every
     layer's smallest chunk fits the capped stage, and the block's shared
     memory at the kernel's instantiation stays under what a block may take.
-    The registry's 500-wide nets keep 32 rows."""
+    The registry's 500-wide nets keep 32 rows.  Past the ring's widest
+    layer (11,512 in f32, 952 in bf16) launch_plan takes mlp() instead
+    (``_check_mlp_branch``), and past mlp()'s it raises."""
     for asked in (32, 16, 8, 1):
         try:
             rt = TK.ring_row_tile(asked, list(sizes), bf16)
         except ValueError:
-            assert bf16 and max(sizes) >= 1000
+            assert max(sizes) > RING_WIDEST[bf16]
+            _check_mlp_branch(asked, sizes, bf16)
             continue
+        assert TK.launch_plan(_shape_only_setup(sizes, asked, bf16)) == (
+            rt, dict(layer_pass="ring", row_tile=rt,
+                     column_passes=TK.ring_column_passes(rt, list(sizes),
+                                                         bf16)))
         assert rt <= asked and TK.ring_fits(rt, list(sizes), bf16)
         assert all(not TK.ring_fits(t, list(sizes), bf16)
                    for t in (asked, 16, 8) if rt < t <= asked)
