@@ -6,7 +6,8 @@
 Builds the CUDA kernels from ``ionflux_torch/csrc`` (three sources, one nvcc
 each, started together; sm_90a), drives four paths of the port at full
 width and holds every kernel (seven, the popsweep in both of its modes)
-against its plain PyTorch version on the same inputs.
+against its plain PyTorch version on the same inputs.  A fifth path, D2's
+surface training, runs last (q).
 
 The forward-simulation path: the trained 200-wide, 7-layer NN-f
 (``out/d1``) and NN-d (``out/d2``) models.
@@ -95,6 +96,28 @@ shape), counters set to 0 just before and read just after:
       the host reduction of the currents (rtol 2e-4, atol 1e-6) and member
       0's Pr4 currents against the plain chained ``simulate_long`` (2e-2 of
       the range), with seconds;
+
+D2's surface-training recipe (``studies.run_study_validated``):
+  (q) ``study_surface(D2)`` at full size (the 16 ground-truth and 16 r-gate
+      solves by the device-paced ``odeint``, timed apart from the host's
+      splines); the device-paced ``odeint`` against ``_odeint_stepwise`` on
+      one activation protocol's Markov ground truth, both on the card (bit
+      for bit: records, counts and outputs), with ms per step and the
+      device's idle share, and its current against the CPU's;
+      ``_table_targets(D2, noisy=True)`` (five chained ground-truth solves
+      on the recordings); then, counters set to 0 just before and read just
+      after, ``run_study_validated(D2, n_seeds=2, iters=800)``: the full
+      7-layer, 200-wide NN-d trained on the full surface (ms per Adam update
+      against its bound; one update captured as a CUDA graph and replayed),
+      its four checkpoints scored through B1's chained
+      launches (``table_rollout_maes_pop``, 8,192 trips), the rows that came
+      back non-finite rescored singly (counted, with seconds), the kept
+      (seed, iteration, score); then one 50-update chunk under the profiler
+      (idle share), 50 captured updates against the CPU's eager ones (loss
+      traces within 1e-3 relative) and one checkpoint the chain scored
+      finite against
+      ``table_rollout_maes`` (1e-2 relative on each column), or a line
+      saying every row was rescored;
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
@@ -108,9 +131,10 @@ f32 and in bf16, the population solve) also carry their executed trips
 the two sweeps' rows (the cluster pass) their executed trips or steps, the
 milliseconds per trip or step, the cluster size and count and the mlp()
 pass's time on the same inputs (B2 also at clusters of 16 and at (b')).
-The f32 popsweep's ``launches`` adds (p)'s to the forward path's
-(``launches_by_path``), and its row carries (p)'s eager and replay seconds
-and ms per executed trip; the probe's its bound for the whole product, its
+The f32 popsweep's ``launches`` adds (p)'s and (q)'s to the forward
+path's (``launches_by_path``), and its row carries (p)'s eager and replay
+seconds and ms per executed trip and (q)'s chain seconds, rescored rows,
+ms per Adam update, its bound and the chunk's idle share; the probe's its bound for the whole product, its
 chain floor and the SM clock it was taken at.
 
 Any failing phase raises, so the script exits non-zero and prints no result.
@@ -119,12 +143,14 @@ Without a CUDA device it exits with code 2.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -169,6 +195,19 @@ VAL_KW = dict(trips=32_768, seg_samples=103_224, chunk=4096, rtol=1e-6,
               atol=1e-8)
 MAE_RTOL, MAE_ATOL = 2e-4, 1e-6   # device vs host reduction (test_pallas.py)
 LONG_TOL = 2e-2       # chained popsweep vs simulate_long, of the range
+# (q): D2's recipe, cut in depth from 6 seeds x 8,000 updates to 2 x 800
+# (4 checkpoints of the full 7-layer, 200-wide NN-d on the full surface)
+Q_SEEDS, Q_ITERS = 2, 800
+SURF_FAR_TOL = 1e-5   # card vs CPU ground truth, of the range, >= 50 ms from
+                      # a step edge (tests/test_torch_surface.py)
+SURF_ALL_TOL = 1e-3   # anywhere: at an edge the two adaptive solves straddle
+                      # it differently
+Q_LOSS_RTOL = 1e-3    # Adam loss traces, card (captured, capturable Adam)
+                      # vs CPU (eager): sums in other orders, as
+                      # tests/test_torch_train.py holds JAX's
+Q_MAE_RTOL = 1e-2     # a checkpoint's MAEs, B1 chain vs the plain chained
+                      # solve: currents within ~5e-4 of their range (p), the
+                      # MAEs ~0.1 (the targets' noise)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): float32 on
 # the CUDA cores, bf16 on the tensor cores, and HBM3 bandwidth.  The kernels
@@ -354,7 +393,10 @@ def check_counts(what: str, launches: dict) -> None:
 def profiled(call, kernel: str) -> tuple[float, float, float]:
     """One ``call()`` under the profiler: (host seconds, device busy ms
     summed over every kernel, of it the ms of kernels whose name holds
-    ``kernel``); busy 0 if the trace holds no device time."""
+    ``kernel``); busy 0 if the trace holds no device time.  Only the
+    device's own events count: an operator's row repeats the time of the
+    kernels it launched."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -366,6 +408,8 @@ def profiled(call, kernel: str) -> tuple[float, float, float]:
         secs = time.perf_counter() - t
     busy = mine = 0.0
     for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
         us = getattr(e, "self_device_time_total", 0.0)
         busy += us
         if kernel in e.key:
@@ -1095,6 +1139,251 @@ def validation_path(dev, rows) -> None:
                    validation_ms_per_trip=seg_ms / trips_run)
 
 
+@contextlib.contextmanager
+def timed_calls(module, name: str, log_to: list):
+    """Replace module.name by a wrapper that synchronises the card around
+    each call and appends (seconds, args, result) to log_to."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log_to.append((time.perf_counter() - t, args, out))
+        return out
+
+    with mock.patch.object(module, name, wrapper):
+        yield
+
+
+def training_path(dev, rows) -> None:
+    """(q) D2's surface-training recipe on the card: the derivative surface
+    at full size, the device-paced odeint against the per-step loop, the
+    table-1 targets, and ``run_study_validated`` (counters set to 0 just
+    before it and read just after), then the comparisons."""
+    import tempfile
+
+    from ionflux_torch import data as D
+    from ionflux_torch import protocols as P
+    from ionflux_torch import studies as S
+    from ionflux_torch.eval import _model_rhs
+    from ionflux_torch import surface as SF
+    from ionflux_torch.fit import train as FT
+    from ionflux_torch.models import MARKOV_Y0_REST, mlp_sizes
+    from ionflux_torch.models.registry import MARKOV_B06
+    from ionflux_torch.ops import fused_solve as F
+    from ionflux_torch.solver import dopri5 as OD
+
+    f32 = torch.float32
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the surface at full size ------------------------------------
+        gt_calls, r_calls = [], []
+        t = time.perf_counter()
+        with timed_calls(S, "synth_study_currents", gt_calls), \
+                timed_calls(SF, "solve_r_gate", r_calls):
+            v, a, dadt = S.study_surface(S.D2, tmp, device=dev)
+        secs_surface = time.perf_counter() - t
+        m1, m2 = P.s_study_masks()
+        cfg = S.D2.cfg
+        n_want = sum(len(np.flatnonzero(m)[cfg.skip::cfg.sparse])
+                     for m in [m1] * 7 + [m2] * 9)
+        keep = (a > 0) & (a < 1)
+        log(f"(q) study_surface(D2): {v.size} points ({int(keep.sum())} "
+            f"with 0 < a < 1) in {secs_surface:.1f} s: the 16 ground-truth "
+            f"solves {gt_calls[0][0]:.1f} s, the 16 r-gate solves "
+            f"{sum(c[0] for c in r_calls):.1f} s, the splines and the rest "
+            f"on the host {secs_surface - gt_calls[0][0] - sum(c[0] for c in r_calls):.1f} s")
+        if v.size != n_want or len(r_calls) != 16:
+            raise RuntimeError(f"(q) surface: {v.size} points (expected "
+                               f"{n_want}), {len(r_calls)} r-gate solves")
+        if not (np.isfinite(v).all() and np.isfinite(a).all()
+                and np.isfinite(dadt).all() and keep.mean() > 0.5):
+            raise RuntimeError("(q) surface: non-finite values or most a "
+                               "outside (0, 1)")
+
+        # ---- the device-paced odeint against the per-step loop -----------
+        t1 = torch.as_tensor(S.T1, dtype=f32, device=dev)
+        proto = P.activation_protocol(0.0, device=dev)
+        y0 = torch.as_tensor(MARKOV_Y0_REST, device=dev)
+        args = (MARKOV_B06, proto)
+        rhs = _model_rhs("markov")
+        secs = {}
+        out = {}
+        for name, solve in (("blocked", OD.odeint),
+                            ("stepwise", OD._odeint_stepwise)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[name] = solve(rhs, y0, t1, args, return_stats=True)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+        (ys_b, st_b), (ys_s, st_s) = out["blocked"], out["stepwise"]
+        same = st_b == st_s and bool(torch.equal(ys_b, ys_s))
+        steps = st_b.n_steps
+        log(f"(q) odeint, Markov ground truth on the 0 mV activation "
+            f"protocol (80,001 outputs): {st_b}; device-paced "
+            f"{secs['blocked']:.3f} s ({1e3 * secs['blocked'] / steps:.3f} "
+            f"ms per step, blocks of {OD.BLOCK_STEPS} as replayed CUDA "
+            f"graphs), per-step loop {secs['stepwise']:.3f} s "
+            f"({1e3 * secs['stepwise'] / steps:.3f} ms per step); "
+            f"{'bit-identical' if same else 'DIFFERENT'} records, counts "
+            f"and outputs")
+        if not (same and st_b.ok):
+            raise RuntimeError(f"(q) blocked odeint {st_b} differs from the "
+                               f"per-step loop {st_s}")
+        p_secs, busy, _ = profiled(lambda: OD.odeint(rhs, y0, t1, args),
+                                   "none")
+        if busy > 0:
+            log(f"(q) odeint profiled: device busy {busy:.1f} ms "
+                f"({1e3 * busy / 1e3 / steps:.3f} ms per step; {p_secs:.3f} s "
+                f"host under the profiler), idle "
+                f"{100 * (1 - busy / 1e3 / secs['blocked']):.1f}% of the "
+                f"unprofiled solve's {secs['blocked']:.3f} s")
+        # the card's ground truth against the CPU's (one protocol)
+        cpu_cur = D.simulate_current(
+            MARKOV_B06, P.activation_protocol(0.0, device="cpu"),
+            t1.cpu()).double().numpy()
+        gpu_cur = D.simulate_current(MARKOV_B06, proto, t1).double().cpu(
+            ).numpy()
+        rng = float(np.ptp(cpu_cur))
+        tt = S.T1
+        far = np.abs(tt[:, None] - np.array([1000.0, 6000.0, 7000.0,
+                                             7500.0])[None]).min(axis=1) >= 50
+        d_far = float(np.abs(gpu_cur - cpu_cur)[far].max())
+        d_all = float(np.abs(gpu_cur - cpu_cur).max())
+        log(f"(q) ground truth on the card vs the CPU: max |dI| "
+            f"{d_far / rng:.2e} of the range at >= 50 ms from a step edge "
+            f"(tol {SURF_FAR_TOL}), {d_all / rng:.2e} anywhere (tol "
+            f"{SURF_ALL_TOL})")
+        if not (d_far <= SURF_FAR_TOL * rng and d_all <= SURF_ALL_TOL * rng):
+            raise RuntimeError(f"(q) card vs CPU ground truth {d_far}, "
+                               f"{d_all}")
+
+        # ---- the table-1 targets: five chained ground-truth solves ---------
+        tgt_calls = []
+        with timed_calls(S, "_sim_real_table", tgt_calls):
+            S._table_targets(S.D2, noisy=True, device=dev)
+        log(f"(q) _table_targets(D2, noisy=True): "
+            f"{[(c[1][2], round(c[0], 1)) for c in tgt_calls]} s")
+        if len(tgt_calls) != 5:
+            raise RuntimeError(f"(q) {len(tgt_calls)} target solves")
+
+        # ---- the path, counted: run_study_validated -------------------------
+        chunks, chains, singles, pops = [], [], [], []
+        reset_counts()
+        t = time.perf_counter()
+        with timed_calls(S, "fit_chunk", chunks), \
+                timed_calls(S, "population_rollout_maes", chains), \
+                timed_calls(S, "table_rollout_maes", singles), \
+                timed_calls(S, "table_rollout_maes_pop", pops):
+            kept = S.run_study_validated(S.D2, tmp, n_seeds=Q_SEEDS,
+                                         iters=Q_ITERS, cached=True,
+                                         device=dev)
+        secs_run = time.perf_counter() - t
+        kern = F.fused_nnf_popsweep_solve_ft
+        launches = {"fused_nnf_popsweep_solve_ft": kern.launches}
+        check_counts("training path", launches)
+        n_iters = sum(c[2][2].shape[0] for c in chunks)
+        secs_train = sum(c[0] for c in chunks)
+        n_pts = int(chunks[0][1][2].shape[0])
+        # one update: forward and backward (three products a layer, 2 FLOP
+        # per MAC); bytes: each layer's activations written, read back and
+        # their gradient written, plus x, y and the residual read
+        sizes = mlp_sizes(5, 200)
+        macs = sum(i * o for i, o in zip(sizes[:-1], sizes[1:]))
+        it_ops = n_pts * 3 * 2 * macs
+        it_bytes = n_pts * (sum(sizes[1:]) * 3 + 4) * 4
+        b_ms, b_by = roofline(it_ops, it_bytes)
+        # the first chunk warms up and captures the update; the rest replay
+        later = chunks[1:]
+        ms_it = 1e3 * sum(c[0] for c in later) / sum(
+            c[2][2].shape[0] for c in later)
+        log(f"(q) run_study_validated(D2, n_seeds={Q_SEEDS}, "
+            f"iters={Q_ITERS}): {secs_run:.1f} s; training {n_iters} Adam "
+            f"updates on {n_pts} points in {secs_train:.2f} s (the first "
+            f"chunk, with the warm-up and the capture, {chunks[0][0]:.2f} "
+            f"s); {ms_it:.3f} ms per replayed update against a bound of "
+            f"{b_ms:.3f} ms ({b_by}; {it_ops:.3e} FLOP, {it_bytes:.3e} B)")
+        res = pops[0][2]
+        ckpts = pops[0][1][1]
+        rescored = {id(c[1][1]) for c in singles}
+        secs_chain = sum(c[0] for c in chains)
+        log(f"(q) batched scoring of {len(ckpts)} checkpoints: "
+            f"{len(chains)} chain call(s), {secs_chain:.2f} s, "
+            f"{launches['fused_nnf_popsweep_solve_ft']} B1 launches; "
+            f"{len(singles)} rows came back non-finite and were rescored "
+            f"singly in {sum(c[0] for c in singles):.1f} s")
+        its = [min(k, Q_ITERS) for k in range(400, Q_ITERS + 400, 400)]
+        order = [(sd, it) for sd in range(Q_SEEDS) for it in its]
+        scores = [r["score"] for r in res]
+        k_best = int(np.argmin(scores))
+        log(f"(q) scores {dict(zip(order, np.round(scores, 5)))}; kept "
+            f"(seed, iter, score) = {order[k_best] + (scores[k_best],)}")
+        if not (np.isfinite(scores[k_best]) and len(res) == len(order)):
+            raise RuntimeError(f"(q) no finite checkpoint: {scores}")
+        if not all(torch.equal(a, b) for (a, _), (b, _) in zip(
+                kept.net.layers, ckpts[k_best].net.layers)):
+            raise RuntimeError("(q) the kept model is not the best checkpoint")
+
+        # ---- comparisons (after the path's counts were read) ---------------
+        def chunk50():
+            return FT.fit_chunk(kept.net, FT.init_opt_state(kept.net),
+                                *chunks[0][1][2:6], iters=50, lr=1e-3,
+                                step_size=400, gamma=0.9)
+
+        c_secs, _ = cuda_ms(chunk50, reps=1)
+        c_secs /= 1e3
+        p_secs, busy, gemm = profiled(chunk50, "gemm")
+        idle = (1 - busy / 1e3 / c_secs) if busy > 0 else None
+        if busy > 0:
+            log(f"(q) one 50-update chunk: {c_secs:.3f} s; profiled, device "
+                f"busy {busy:.1f} ms (matrix products {gemm:.1f} ms; "
+                f"{p_secs:.3f} s host under the profiler), idle "
+                f"{100 * idle:.1f}% of the unprofiled chunk")
+        # the captured update against the CPU's eager one: 50 updates of
+        # the kept net on every 25th point of the surface
+        sub = [t[::25] for t in chunks[0][1][2:5]]
+        _, _, l_card = FT.fit_chunk(kept.net, FT.init_opt_state(kept.net),
+                                    *sub, iters=50, lr=1e-3, step_size=10,
+                                    gamma=0.9)
+        cpu_net = [(w.cpu(), b.cpu()) for w, b in kept.net.layers]
+        _, _, l_cpu = FT.fit_chunk(cpu_net, FT.init_opt_state(cpu_net),
+                                   *[t.cpu() for t in sub], iters=50,
+                                   lr=1e-3, step_size=10, gamma=0.9)
+        d_loss = float(((l_card.cpu() - l_cpu) / l_cpu).abs().max())
+        log(f"(q) 50 updates on {sub[0].shape[0]} points: the card's "
+            f"captured update vs the CPU's eager one, loss traces within "
+            f"{d_loss:.2e} relative (tol {Q_LOSS_RTOL})")
+        if not d_loss <= Q_LOSS_RTOL:
+            raise RuntimeError(f"(q) card vs CPU Adam trace {d_loss}")
+        batch_ok = [k for k, p in enumerate(ckpts)
+                    if id(p) not in rescored and np.isfinite(scores[k])]
+        if batch_ok:
+            k = batch_ok[0]
+            t = time.perf_counter()
+            plain = S.table_rollout_maes(S.D2, ckpts[k])
+            secs_plain = time.perf_counter() - t
+            cols = ["pr3", "pr5", "pr4", "sin", "aps"]
+            rel = max(abs(res[k][c] - plain[c]) / (abs(plain[c]) + 1e-12)
+                      for c in cols)
+            log(f"(q) checkpoint {order[k]}: batched {res[k]} against the "
+                f"plain chained solve {plain} ({secs_plain:.1f} s): max "
+                f"relative difference {rel:.2e} (tol {Q_MAE_RTOL})")
+            if not rel <= Q_MAE_RTOL:
+                raise RuntimeError(f"(q) batched vs plain MAEs {rel}")
+        else:
+            log(f"(q) every row came back non-finite from the chain at "
+                f"8,192 trips: the kept score is a rescored one")
+    rows_b1 = next(r for r in rows
+                   if r["name"] == "fused_nnf_popsweep_solve_ft")
+    rows_b1["launches_by_path"]["training"] = launches[
+        "fused_nnf_popsweep_solve_ft"]
+    rows_b1["launches"] += launches["fused_nnf_popsweep_solve_ft"]
+    rows_b1.update(training_chain_s=secs_chain, training_rescored=len(singles),
+                   training_ms_per_update=ms_it, training_bound_ms=b_ms,
+                   training_idle=idle)
+
+
 def accepted_trips(rec_sc: torch.Tensor, n_valid: int) -> torch.Tensor:
     """Indices of a trip solve's accepted trips: those after which the next
     trip starts later."""
@@ -1406,6 +1695,8 @@ def main() -> int:
     log(f"validation path done at {time.perf_counter() - t_start:.0f} s")
     d0_path(dev, rows)
     log(f"d0 path done at {time.perf_counter() - t_start:.0f} s")
+    training_path(dev, rows)
+    log(f"training path done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- (e) results -------------------------------------------------------
     print(json.dumps({"kernels": rows}), flush=True)

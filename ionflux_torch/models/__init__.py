@@ -1,6 +1,12 @@
 from ionflux_torch.models import registry
 from ionflux_torch.models.gt_a import gt_a_coeffs, gt_a_rhs
-from ionflux_torch.models.hh import a_gate_rhs, hh_rates, hh_rhs, r_gate_rhs
+from ionflux_torch.models.hh import (
+    a_gate_rhs,
+    hh_rates,
+    hh_rhs,
+    hh_steady_state,
+    r_gate_rhs,
+)
 from ionflux_torch.models.markov import (
     MARKOV_Y0_INACT,
     MARKOV_Y0_REST,
@@ -12,6 +18,7 @@ from ionflux_torch.models.nn import (
     NNdParams,
     NNfParams,
     mlp_apply,
+    mlp_init,
     mlp_sizes,
     nn_surface,
     nnd_init,
@@ -27,6 +34,7 @@ __all__ = [
     "gt_a_rhs",
     "hh_rhs",
     "hh_rates",
+    "hh_steady_state",
     "a_gate_rhs",
     "r_gate_rhs",
     "markov_rhs",
@@ -37,6 +45,7 @@ __all__ = [
     "NNfParams",
     "NNdParams",
     "mlp_apply",
+    "mlp_init",
     "mlp_sizes",
     "nnf_init",
     "nnf_rhs",

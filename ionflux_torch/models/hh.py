@@ -43,3 +43,15 @@ def r_gate_rhs(p: HHParams, r: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     k3 = float(p.p5) * torch.exp(float(p.p6) * v)
     k4 = float(p.p7) * torch.exp(-float(p.p8) * v)
     return -k3 * r + k4 * (1.0 - r)
+
+
+def hh_steady_state(p: HHParams, v: torch.Tensor) -> torch.Tensor:
+    """Steady state [a_inf, r_inf] at constant voltage."""
+    k1, k2, k3, k4 = hh_rates(p, v)
+    return torch.stack([k1 / (k1 + k2), k4 / (k3 + k4)], dim=-1)
+
+
+def hh_time_constants(p: HHParams, v: torch.Tensor) -> torch.Tensor:
+    """Relaxation time constants [tau_a, tau_r] at constant voltage."""
+    k1, k2, k3, k4 = hh_rates(p, v)
+    return torch.stack([1.0 / (k1 + k2), 1.0 / (k3 + k4)], dim=-1)

@@ -30,6 +30,22 @@ def mlp_sizes(n_layers: int = 5, n_nodes: int = 200) -> list[int]:
     return [2] + [n_nodes] * (n_layers + 1) + [1]
 
 
+def mlp_init(generator: torch.Generator, sizes: Sequence[int],
+             std: float = 0.1, device=None):
+    """List of (W [in, out], b [out]) with N(0, std^2) weights drawn from
+    ``generator`` (a CPU generator; the stream differs from
+    ``jax.random``'s) and zero biases."""
+    device = resolve_device(device)
+    layers = []
+    for d_in, d_out in zip(sizes[:-1], sizes[1:]):
+        w = std * torch.randn(d_in, d_out, generator=generator,
+                              dtype=torch.float32)
+        layers.append((w.to(device),
+                       torch.zeros(d_out, dtype=torch.float32,
+                                   device=device)))
+    return layers
+
+
 class MLP(nn.Module):
     """LeakyReLU MLP with weights [..., in, out] and biases [..., out]."""
 
@@ -43,16 +59,8 @@ class MLP(nn.Module):
     @classmethod
     def init(cls, sizes: Sequence[int], generator: torch.Generator,
              std: float = 0.1, device=None) -> "MLP":
-        """N(0, std^2) weights, zero biases (the reference initialisation)."""
-        device = resolve_device(device)
-        layers = []
-        for d_in, d_out in zip(sizes[:-1], sizes[1:]):
-            w = std * torch.randn(d_in, d_out, generator=generator,
-                                  dtype=torch.float32)
-            layers.append((w.to(device),
-                           torch.zeros(d_out, dtype=torch.float32,
-                                       device=device)))
-        return cls(layers)
+        """N(0, std^2) weights, zero biases (``mlp_init``)."""
+        return cls(mlp_init(generator, sizes, std, device))
 
     @property
     def layers(self) -> list[tuple[torch.Tensor, torch.Tensor]]:

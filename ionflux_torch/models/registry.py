@@ -100,6 +100,20 @@ HH_D2_BASE = _hh(
     MARKOV_B06.p5, MARKOV_B06.p6, MARKOV_B06.p7, MARKOV_B06.p8,
 )
 
+# d0 candidate-fit initial guess, the analytic part of the d-studies'
+# r-gate (train-d0.py:326-334; p5-p8 are the Markov M10 values).
+HH_D0_INIT = _hh(
+    1.13e-4, 7.45e-2, 3.60e-5, 4.49e-2,
+    MARKOV_B06.p5, MARKOV_B06.p6, MARKOV_B06.p7, MARKOV_B06.p8,
+)
+
+# d-study pretrain surface: the Markov a1/b1 rates as HH p1-p4
+# (train-d1.py:821-823).
+HH_D_PRETRAIN = _hh(
+    MARKOV_B06.p1, MARKOV_B06.p2, MARKOV_B06.p3, MARKOV_B06.p4,
+    MARKOV_B06.p5, MARKOV_B06.p6, MARKOV_B06.p7, MARKOV_B06.p8,
+)
+
 # Synthetic studies: g=1, E=-86 mV.
 SYNTHETIC = Constants(np.float32(1.0), np.float32(-86.0))
 

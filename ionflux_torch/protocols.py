@@ -42,13 +42,15 @@ class Protocol(NamedTuple):
 
 def voltage(p: Protocol, t: torch.Tensor) -> torch.Tensor:
     """V(t) by linear interpolation, -80 mV out of domain.  ``t`` may have
-    any shape; ``p`` is a single (unstacked) protocol."""
+    any shape; ``p`` is a single (unstacked) protocol.  No host read, so a
+    solve's step block can be captured as a CUDA graph."""
     x = (t - p.t0) / p.dt
     n = p.v.shape[-1]
     i = torch.clamp(torch.floor(x).to(torch.int64), 0, n - 2)
     w = x - i.to(x.dtype)
-    lo = p.v[i]
-    hi = p.v[i + 1]
+    # take, not p.v[i]: a 0-d index tensor would be read on the host
+    lo = torch.take(p.v, i)
+    hi = torch.take(p.v, i + 1)
     val = lo + w * (hi - lo)
     in_dom = (x >= 0.0) & (x <= float(n - 1))
     return torch.where(in_dom, val, torch.full_like(val, HOLDING_MV))
@@ -74,6 +76,15 @@ def from_time_series(t: np.ndarray, v: np.ndarray, dtype=torch.float32,
     return Protocol(torch.tensor(t[0], dtype=dtype, device=device),
                     torch.tensor(dt, dtype=dtype, device=device),
                     torch.as_tensor(np.asarray(v), device=device).to(dtype))
+
+
+def load_csv(path: str, time_in_seconds: bool = True, dtype=torch.float32,
+             device=None) -> Protocol:
+    """A protocol from a ``time,voltage`` CSV with a header row, time in s
+    (made ms) unless ``time_in_seconds`` is False."""
+    raw = np.loadtxt(path, skiprows=1, delimiter=",")
+    t = raw[:, 0] * (1e3 if time_in_seconds else 1.0)
+    return from_time_series(t, raw[:, 1], dtype=dtype, device=device)
 
 
 ACTIVATION_STEPS_MV = (-60.0, -40.0, -20.0, 0.0, 20.0, 40.0, 60.0)
@@ -196,3 +207,68 @@ def stack(ps: Sequence[Protocol]) -> Protocol:
     return Protocol(t0=torch.stack([p.t0 for p in ps]),
                     dt=torch.stack([p.dt for p in ps]),
                     v=torch.stack([p.v for p in ps]))
+
+
+# ---------------------------------------------------------------------------
+# Step-boundary and capacitance masks (numpy, host side)
+# ---------------------------------------------------------------------------
+
+
+def change_points(v: np.ndarray) -> np.ndarray:
+    """True where a sample CONTINUES the previous voltage (the first sample
+    counts as continuing)."""
+    v = np.asarray(v)
+    return np.append([True], v[1:] == v[:-1])
+
+
+def segment_edges(t: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Times where the voltage changes, plus t[-1] + 1 as the final
+    sentinel."""
+    t, v = np.asarray(t), np.asarray(v)
+    t_split = t[np.append([False], v[:-1] != v[1:])]
+    return np.append(t_split, t[-1] + 1)
+
+
+def derivative_mask(n: int, step_indices: Sequence[int], lo: int = 5,
+                    hi: int = 50) -> np.ndarray:
+    """False on samples [i - lo, i + hi) around each voltage step i, where
+    derivative estimates are unreliable."""
+    mask = np.ones(n, dtype=bool)
+    for i in step_indices:
+        mask[max(i - lo, 0): min(i + hi, n)] = False
+    return mask
+
+
+def s_study_masks() -> tuple[np.ndarray, np.ndarray]:
+    """The (activation, deactivation) masks of the synthetic studies' 0.1 ms
+    grids."""
+    mask1 = derivative_mask(80001, [10000, 60000, 70000, 75000])
+    mask2 = derivative_mask(100001, [10000, 30000, 90000, 95000])
+    return mask1, mask2
+
+
+def capacitance_mask(v: np.ndarray, n_points: int = 70,
+                     extra_changes: np.ndarray | None = None) -> np.ndarray:
+    """Drop ``n_points`` samples after each voltage step (capacitive
+    spikes); ``extra_changes`` marks more samples as changing."""
+    cc = change_points(v)
+    if extra_changes is not None:
+        cc = cc | extra_changes
+    mask = np.copy(cc)
+    for i in range(n_points):
+        mask &= np.roll(cc, i + 1)
+    return mask
+
+
+def training_mask(v: np.ndarray, n_points: int = 70, extra_points: int = 20,
+                  extra_changes: np.ndarray | None = None) -> np.ndarray:
+    """The capacitance mask widened by ``extra_points`` on both sides of
+    each step."""
+    cc = change_points(v)
+    if extra_changes is not None:
+        cc = cc | extra_changes
+    mask = capacitance_mask(v, n_points, extra_changes)
+    for i in range(extra_points):
+        mask &= np.roll(cc, i + n_points + 1)
+        mask &= np.roll(cc, -i - 1)
+    return mask

@@ -55,13 +55,17 @@ def test_port_imports_neither_jax_nor_ionflux():
         "    importlib.import_module(n)\n"
         "for n in ('models.markov', 'protorec', 'solver.chained',\n"
         "          'ops.hh_solve', 'ops._build', 'fit.cmaes',\n"
-        "          'ops.fused_solve', 'ops.bias_probe', 'models.gt_a'):\n"
+        "          'ops.fused_solve', 'ops.bias_probe', 'models.gt_a',\n"
+        "          'studies', 'surface', 'data', 'fit.train',\n"
+        "          'ops.smoothing'):\n"
         "    assert 'ionflux_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
         "import train_d0_torch, probe_mosaic_bias_fault_torch\n"
         "import time_forward_torch, probe_ring_pass_torch, time_probe_torch\n"
         "import probe_cluster_launch_torch, probe_validation_chain_torch\n"
+        "import train_d1_torch, train_d2_torch, common_torch\n"
+        "import probe_chain_vs_plain_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ionflux'))\n"
         "assert not bad, bad\n"
@@ -900,3 +904,74 @@ def test_sweep_keeps_mlp_for_a_net_too_large_for_a_cluster_on_card(card):
     assert TK._trip_solve_cuda.last_pass["cluster_size"] == 16
     assert torch.equal(c8[3], c16[3]) and torch.equal(c8[4], c16[4])
     _same_records(c8, c16, int(c8[3][1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hh", "markov", "nnf", "nnd", "gta",
+                                  "rgate"])
+def test_odeint_graph_replay_equals_stepwise_on_card(card, kind):
+    """The blocked odeint on the card (its first block eager, then the
+    captured block's graph replayed; a second solve of the same setting
+    replays only) equals the per-step loop bit for bit, on every right-hand
+    side of the port's paths: the five model kinds and the r-gate."""
+    from ionflux_torch.eval import _model_rhs, default_y0
+    from ionflux_torch.solver import dopri5 as TD
+    from ionflux_torch.surface import _rhs_r
+
+    proto = TP.activation_protocol(20.0, 1.0, device=card)
+    ts = torch.linspace(0.0, 8000.0, 801, device=card)
+    net = TN.MLP(_net(3, device=card))
+    params = {"hh": TR.HH_B06, "markov": TR.MARKOV_B06, "gta": TR.MARKOV_B06,
+              "nnf": TN.NNfParams(net, TR.HH_B06),
+              "nnd": TN.NNdParams(net, TR.HH_D2_BASE),
+              "rgate": TR.HH_B06}[kind]
+    args = (params, proto)
+    if kind == "rgate":
+        fn, y0 = _rhs_r, torch.ones(1, device=card)
+    else:
+        fn, y0 = _model_rhs(kind), default_y0(kind, device=card)
+    want = TD._odeint_stepwise(fn, y0, ts, args, return_stats=True)
+    for _ in range(2):
+        got = TD.odeint(fn, y0, ts, args, return_stats=True)
+        assert got[1] == want[1] and got[1].ok
+        assert torch.equal(got[0], want[0])
+    assert any(k[0] == TD._fn_key(fn) for k in TD._GRAPHS)
+
+
+def _surface_case(device, n=256, seed=0):
+    rs = np.random.RandomState(seed)
+    x = np.stack([rs.uniform(-1.2, 0.4, n), rs.uniform(0.02, 0.98, n)], -1)
+    y = 1e-3 * np.tanh(3 * x[:, 0]) * (1 - x[:, 1])
+    return [torch.as_tensor(z, dtype=torch.float32, device=device)
+            for z in (x, y, 1e-4 * x[:, 1])]
+
+
+@pytest.mark.cuda
+def test_fit_chunk_graph_on_card(card):
+    """fit_chunk on the card (three eager updates, then the captured update
+    replayed) against the CPU's eager chunk: the loss traces within 1e-3
+    relative (GPU vs CPU sums, capturable Adam's rate on the device); and
+    on the card 17 + 17 + 16 updates resumed across chunks equal one chunk
+    of 50 bit for bit."""
+    from ionflux_torch.fit import train as TT
+
+    net = _net(7)
+    kw = dict(lr=1e-2, step_size=10, gamma=0.5)
+    x, y, r = _surface_case("cpu")
+    _, _, l_cpu = TT.fit_chunk(net, TT.init_opt_state(net), x, y, r,
+                               iters=50, **kw)
+    net_c = [(w.to(card), b.to(card)) for w, b in net]
+    xc, yc, rc = _surface_case(card)
+    one, s1, l_one = TT.fit_chunk(net_c, TT.init_opt_state(net_c), xc, yc,
+                                  rc, iters=50, **kw)
+    np.testing.assert_allclose(l_one.cpu().numpy(), l_cpu.numpy(),
+                               rtol=1e-3)
+    cur, state, parts = net_c, TT.init_opt_state(net_c), []
+    for n in (17, 17, 16):
+        cur, state, losses = TT.fit_chunk(cur, state, xc, yc, rc, iters=n,
+                                          **kw)
+        parts.append(losses)
+    assert state.count == s1.count == 50
+    assert torch.equal(torch.cat(parts), l_one)
+    for (a, b), (c, d) in zip(cur.layers, one.layers):
+        assert torch.equal(a, c) and torch.equal(b, d)
