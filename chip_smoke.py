@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``ionflux_torch/csrc`` (three sources, one nvcc
-each, started together; sm_90a), drives four paths of the port at full
-width and holds every kernel (seven, the popsweep in both of its modes)
-against its plain PyTorch version on the same inputs.  A fifth path, D2's
-surface training, runs last (q).
+Builds the CUDA kernels from ``ionflux_torch/csrc`` (five sources, one nvcc
+each, started together; sm_90a), drives the paths of the port at full
+width and holds every kernel (the seven ports of the TPU kernels, the
+popsweep in both of its modes, and K1 and K2, which have no Pallas
+counterpart) against its plain PyTorch version on the same inputs.  The
+d0 fit's four objectives and its device-resident CMA-ES (r) follow the d0
+path, D2's surface training (q) follows them, and the on-device derivative
+surface (s) runs last.
 
 The forward-simulation path: the trained 200-wide, 7-layer NN-f
 (``out/d1``) and NN-d (``out/d2``) models.
@@ -97,6 +100,26 @@ shape), counters set to 0 just before and read just after:
       0's Pr4 currents against the plain chained ``simulate_long`` (2e-2 of
       the range), with seconds;
 
+The d0 fit's other paths (``scripts/train_d0_torch.py``), counters set to
+0 just before and read just after:
+  (r) on (f)'s data at the CMA-ES default population (8): the lockstep
+      (``make_objective``: ``odeint_batched`` per sweep, blocks replayed as
+      CUDA graphs), analytic (exact propagator; one graph replay a
+      generation), fused and native (C++ host solver) objectives at P0 and
+      (not the native one) at 8 members P0 (1 + 0.05 N(0, 1))
+      (``RandomState(0)``), pairwise within 1e-2 relative, with seconds per
+      evaluation; the blocked lockstep solve of Pr3 sweep 0 at 8 lanes
+      against its stepwise reference (records, counts and outputs bit for
+      bit; ms per step); two host-``cmaes`` generations over the lockstep
+      objective; the full d0 fit by ``cmaes_onchip`` over the analytic
+      objective (JAX's settings, capped at 600 generations; each parameter
+      within 0.5% of the reference d0 fit; ms per replayed generation and
+      the device's idle share); ``cmaes_onchip`` over the fused objective
+      cut to 16 generations (B3's launches counted through the replays);
+      then K2 (``ops.sym_eig``, the Jacobi eigensolver inside
+      ``cmaes_onchip``) on 1,000 SPD 4 x 4 against its plain version and
+      torch.linalg.eigh;
+
 D2's surface-training recipe (``studies.run_study_validated``):
   (q) ``study_surface(D2)`` at full size (the 16 ground-truth and 16 r-gate
       solves by the device-paced ``odeint``, timed apart from the host's
@@ -118,6 +141,14 @@ D2's surface-training recipe (``studies.run_study_validated``):
       finite against
       ``table_rollout_maes`` (1e-2 relative on each column), or a line
       saying every row was rescored;
+The on-device derivative surface, counter set to 0 just before and read
+just after:
+  (s) ``estimate_gate_surface_ondevice`` on the activation protocol at -60
+      mV (80,001 samples, the default ``SurfaceConfig``) against the scipy
+      path (RMS within 1e-6 on a, 5e-6 on dadt, tests/test_spline.py's
+      bounds), with seconds for both; K1 (``ops.spline.
+      tridiag_solve_batched``, one launch for the protocol's segments)
+      against its plain version (didt within 1e-5 of its scale);
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
@@ -134,8 +165,13 @@ pass's time on the same inputs (B2 also at clusters of 16 and at (b')).
 The f32 popsweep's ``launches`` adds (p)'s and (q)'s to the forward
 path's (``launches_by_path``), and its row carries (p)'s eager and replay
 seconds and ms per executed trip and (q)'s chain seconds, rescored rows,
-ms per Adam update, its bound and the chunk's idle share; the probe's its bound for the whole product, its
-chain floor and the SM clock it was taken at.
+ms per Adam update, its bound and the chunk's idle share; the probe's its
+bound for the whole product, its chain floor and the SM clock it was taken
+at.  The HH trip kernel's ``launches`` adds (r)'s (``launches_by_path``)
+and its row carries the ms per replayed generation of ``cmaes_onchip`` over
+the fused objective.  The rows of K1 and K2 name no TPU kernel (they replace
+a ``lax.scan`` and ``jnp.linalg.eigh``) and carry their design; K2's
+``library_ms`` is torch.linalg.eigh's time on the same matrices.
 
 Any failing phase raises, so the script exits non-zero and prints no result.
 Without a CUDA device it exits with code 2.
@@ -208,6 +244,19 @@ Q_LOSS_RTOL = 1e-3    # Adam loss traces, card (captured, capturable Adam)
 Q_MAE_RTOL = 1e-2     # a checkpoint's MAEs, B1 chain vs the plain chained
                       # solve: currents within ~5e-4 of their range (p), the
                       # MAEs ~0.1 (the targets' noise)
+
+# (r): the d0 objectives and the device-resident fit, at the CMA-ES default
+# population on the recorded Pr3 and Pr5, full size
+R_SPREAD = 0.05       # members P0 (1 + 0.05 N(0, 1)), RandomState(0)
+OBJ_RTOL = 1e-2       # the four objectives pairwise (the analytic vs
+                      # lockstep gap is ~0.7%, tests/test_analytic.py)
+FIT_RTOL = 5e-3       # cmaes_onchip's analytic fit vs the reference d0 fit
+FIT_CAP = 600         # generations
+FUSED_ITERS = 16      # cmaes_onchip over the fused objective: two chunks
+K2_TOL = 1e-5         # K2 vs torch.linalg.eigh, of each matrix's scale
+# (s): the on-device derivative surface, tests/test_spline.py's case
+SURF_RMS_A, SURF_RMS_D = 1e-6, 5e-6   # against the scipy path (its bounds)
+K1_RTOL = 1e-5        # K1 vs plain on didt, of its scale
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): float32 on
 # the CUDA cores, bf16 on the tensor cores, and HBM3 bandwidth.  The kernels
@@ -299,10 +348,13 @@ def reset_counts() -> None:
     from ionflux_torch.ops import bias_probe as B
     from ionflux_torch.ops import fused_solve as F
     from ionflux_torch.ops import hh_solve as H
+    from ionflux_torch.ops import spline as SP
+    from ionflux_torch.ops import sym_eig as SE
 
     for k in (F.fused_nnf_solve_ft, F.fused_nnf_popsweep_solve_ft,
               F.fused_nnf_pop_solve_ft, F.fused_nnf_solve,
-              H.fused_hh_pop_solve_ft, H.fused_hh_rk4, B.bias_probe):
+              H.fused_hh_pop_solve_ft, H.fused_hh_rk4, B.bias_probe,
+              SP.tridiag_solve_batched, SE.sym_eig):
         k.launches = 0
 
 
@@ -640,8 +692,9 @@ def forward_path(dev, rows) -> dict:
     return dict(i_pop=i_pop, i_ode=i_ode, b2=b2)
 
 
-def d0_path(dev, rows) -> None:
-    """Phases (f)-(k): the d0 whole-trace CMA-ES fit and its three kernels."""
+def d0_path(dev, rows):
+    """Phases (f)-(k): the d0 whole-trace CMA-ES fit and its three kernels.
+    Returns (f)'s data (d3, d5)."""
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import train_d0_torch as T
     from ionflux_torch import protocols as P
@@ -933,6 +986,7 @@ def d0_path(dev, rows) -> None:
         launches=launches["fused_nnf_pop_solve_ft"], max_abs_err=err,
         ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, **ring_fields(n_k[1], ms_k)))
+    return d3, d5
 
 
 def wide_check(dev) -> None:
@@ -1656,6 +1710,308 @@ def while_probe_path(dev, rows, fwd: dict) -> None:
         layer_pass=NO_PASS))
 
 
+def fit_path(dev, rows, d3, d5) -> None:
+    """Phase (r): the four d0 objectives, the lockstep solve against its
+    stepwise reference, the host loop over the lockstep objective, and the
+    device-resident fit (``cmaes_onchip``) over the analytic and the fused
+    objective; then K2 against its plain version and torch.linalg.eigh."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_d0_torch as T
+    from ionflux_torch import protocols as P
+    from ionflux_torch.fit.cmaes import _default_popsize, cmaes, cmaes_onchip
+    from ionflux_torch.ops import hh_solve as H
+    from ionflux_torch.ops import sym_eig as SE
+    from ionflux_torch.solver import batched as TB
+
+    f32 = torch.float32
+    pop = _default_popsize(len(T.P0))
+    xs = T.P0[None] * (1.0 + R_SPREAD * np.random.RandomState(0).randn(
+        pop, 4))
+    xs_t = torch.tensor(xs, dtype=f32, device=dev)
+    b3 = H.fused_hh_pop_solve_ft
+    reset_counts()
+
+    # ---- the four objectives at P0 and at 8 members -----------------------
+    objs = dict(
+        lockstep=T.make_objective(d3, d5, pop, device=dev),
+        analytic=T.make_objective_analytic(d3, d5, pop, device=dev),
+        fused=T.make_objective_fused(d3, d5, pop, trips=HH_TRIPS,
+                                     device=dev),
+        native=T.make_objective_native(d3, d5))
+    at_p0, at_xs, secs = {}, {}, {}
+    for name, obj in objs.items():
+        t = time.perf_counter()
+        at_p0[name] = float(obj(T.P0[None])[0])
+        first = time.perf_counter() - t
+        if name != "native":
+            t = time.perf_counter()
+            at_xs[name] = obj(xs)
+            secs[name] = time.perf_counter() - t
+        else:
+            secs[name] = first
+        log(f"(r) {name}: SSE(P0) = {at_p0[name]:.6f}; first call "
+            f"{first:.3f} s, {'second call (8 members)' if name != 'native' else 'one member'} "
+            f"{secs[name]:.4f} s")
+    ana = objs["analytic"]
+    ms_eager, _ = cuda_ms(lambda: ana.device_fn(xs_t), reps=3)
+    t = time.perf_counter()
+    for _ in range(5):
+        ana(xs)
+    ms_replay = (time.perf_counter() - t) / 5 * 1e3
+    # the objective's device time a generation: CUDA events around replays
+    # of a graph of device_fn alone (the profiler's kernel sums run above
+    # the unprofiled wall time for these ~1,000 small kernels)
+    from ionflux_torch.ops._build import Graph
+    g = Graph(ana.device_fn, xs_t.clone())
+    ms_graph, _ = cuda_ms(g.replay, reps=20)
+    log(f"(r) analytic objective, 8 members: eager {ms_eager:.3f} ms, "
+        f"replayed {ms_replay:.3f} ms a generation (host clock, with the "
+        f"SSE's copy to the host); its graph alone {ms_graph:.3f} ms (CUDA "
+        f"events)")
+    names = list(objs)
+    worst = 0.0
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            rel = abs(at_p0[a] - at_p0[b]) / abs(at_p0[b])
+            worst = max(worst, rel)
+            if not (np.isfinite(at_p0[a]) and rel <= OBJ_RTOL):
+                raise RuntimeError(f"(r) SSE(P0) {a} {at_p0[a]} vs {b} "
+                                   f"{at_p0[b]}: {rel} > {OBJ_RTOL}")
+            if a in at_xs and b in at_xs:
+                rel = np.abs(at_xs[a] - at_xs[b]) / np.abs(at_xs[b])
+                worst = max(worst, float(rel.max()))
+                if not (np.all(np.isfinite(at_xs[a]))
+                        and rel.max() <= OBJ_RTOL):
+                    raise RuntimeError(f"(r) 8 members {a} vs {b}: "
+                                       f"{rel.max()} > {OBJ_RTOL}")
+    log(f"(r) objectives pairwise: worst relative difference {worst:.3e} "
+        f"(tol {OBJ_RTOL}); SSE at the 8 members "
+        f"{ {k: v.round(4).tolist() for k, v in at_xs.items()} }")
+
+    # ---- the blocked lockstep solve vs its stepwise reference -------------
+    protos3, ts3, _, _ = T._sweep_protos(T.RECORDINGS[0], dev)
+    sweep0 = P.Protocol(protos3.t0[0], protos3.dt[0], protos3.v[0])
+    y0 = torch.tensor([0.0, 1.0], dtype=f32, device=dev).repeat(pop, 1)
+    solve = (T._rhs_hh_pop, y0, ts3, (xs_t, sweep0), 1e-5, 1e-7, 200_000,
+             8192, None, None)
+    out = {}
+    for name, fn in (("blocked", TB._solve_blocked),
+                     ("stepwise", TB._solve_stepwise)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, c = fn(*solve)
+        ys = TB._finish(ts3, y0, st, c, False)
+        torch.cuda.synchronize()
+        out[name] = (st, ys, time.perf_counter() - t)
+    (st_b, ys_b, s_b), (st_s, ys_s, s_s) = out["blocked"], out["stepwise"]
+    n_acc, n_step = int(st_b.n_acc), int(st_b.n_step)
+    same = ((n_acc, n_step) == (int(st_s.n_acc), int(st_s.n_step))
+            and torch.equal(st_b.lane_ok, st_s.lane_ok)
+            and all(torch.equal(a[:n_acc].view(torch.int32),
+                                b[:n_acc].view(torch.int32))
+                    for a, b in zip(st_b[10:], st_s[10:]))
+            and torch.equal(ys_b.view(torch.int32), ys_s.view(torch.int32)))
+    log(f"(r) lockstep Pr3 sweep 0 at {pop} lanes: {n_acc} accepted of "
+        f"{n_step} steps; blocked {s_b * 1e3 / n_step:.3f} ms a step "
+        f"({s_b:.3f} s), stepwise {s_s * 1e3 / n_step:.3f} ms a step "
+        f"({s_s:.3f} s); records, counts and outputs "
+        f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise RuntimeError("(r) the blocked lockstep solve differs from its "
+                           "stepwise reference")
+
+    # ---- two host-cmaes generations over the lockstep objective -----------
+    t = time.perf_counter()
+    res = cmaes(objs["lockstep"], T.P0, sigma0=0.1 * T.P0,
+                bounds=(0.1 * T.P0, 10.0 * T.P0), max_iterations=2)
+    secs_lock = (time.perf_counter() - t) / res.iterations
+    log(f"(r) host cmaes over the lockstep objective: {res.iterations} "
+        f"generations, {secs_lock:.3f} s a generation, best SSE "
+        f"{res.fx:.4f}")
+    if res.iterations != 2 or not np.isfinite(res.fx):
+        raise RuntimeError("(r) host cmaes over the lockstep objective")
+
+    # ---- the full d0 fit on the card: cmaes_onchip, analytic objective ----
+    kw = dict(sigma0=T.P0 * 0.1, bounds=(T.P0 * 0.1, T.P0 * 10.0),
+              max_unchanged_iterations=100, unchanged_threshold=1e-3,
+              device=dev)
+    t = time.perf_counter()
+    cmaes_onchip(ana.device_fn, T.P0, max_iterations=8, **kw)
+    s_short = time.perf_counter() - t          # capture + 2 replays
+    t = time.perf_counter()
+    fit = cmaes_onchip(ana.device_fn, T.P0, max_iterations=FIT_CAP, **kw)
+    wall = time.perf_counter() - t
+    replays = len(fit.history)
+    ms_gen = (wall - s_short) * 1e3 / (8 * (replays - 2))
+    ratio = fit.x / T.REF_D0
+    log(f"(r) cmaes_onchip, analytic objective: {fit.iterations} "
+        f"generations ({'cap reached' if fit.hit_max_iterations else 'unchanged rule'}), "
+        f"{wall:.2f} s wall ({wall * 1e3 / fit.iterations:.3f} ms a "
+        f"generation with the warm-up and the capture; {ms_gen:.3f} ms a "
+        f"replayed generation, from {replays} replayed chunks less a "
+        f"two-chunk fit's {s_short:.2f} s); best SSE {fit.fx:.6f}; "
+        f"found/reference {ratio.tolist()}")
+    log(f"(r) its device idle share, estimated: 1 - {ms_graph:.3f} ms (the "
+        f"objective's graph, the bulk of a generation's device work) / "
+        f"{ms_gen:.3f} ms a replayed generation = "
+        f"{100 * (1 - ms_graph / ms_gen):.1f}%")
+    if fit.hit_max_iterations or not np.all(np.abs(ratio - 1) <= FIT_RTOL):
+        raise RuntimeError(f"(r) the on-card fit: found/reference {ratio} "
+                           f"(tol {FIT_RTOL}), {fit.iterations} generations")
+
+    # ---- cmaes_onchip over the fused objective, cut in depth --------------
+    fus = objs["fused"]
+    n0 = b3.launches
+    t = time.perf_counter()
+    res8 = cmaes_onchip(fus.device_fn, T.P0, max_iterations=8, **kw)
+    s8 = time.perf_counter() - t
+    n8 = b3.launches - n0
+    t = time.perf_counter()
+    res_f = cmaes_onchip(fus.device_fn, T.P0, max_iterations=FUSED_ITERS,
+                         **kw)
+    s16 = time.perf_counter() - t
+    n16 = b3.launches - n0 - n8
+    want = 16 * (1 + 8 * len(res_f.history))
+    log(f"(r) cmaes_onchip, fused objective: {res_f.iterations} generations "
+        f"(history {[h[0] for h in res_f.history]}), B3 launches {n16} (16 "
+        f"eager warm-up + 16 x 8 x {len(res_f.history)} replayed, the "
+        f"frozen lookahead chunk included; expected {want}); {s16:.3f} s "
+        f"wall, {(s16 - s8) * 1e3 / 8:.3f} ms a replayed generation (against "
+        f"the host loop's 0.013 s, PERF.md); best SSE {res_f.fx:.4f}")
+    if (res_f.iterations != FUSED_ITERS or res8.iterations != 8
+            or n16 != want or not np.isfinite(res_f.fx)):
+        raise RuntimeError(f"(r) cmaes_onchip over the fused objective: "
+                           f"{res_f.iterations} iterations, {n16} launches")
+    launches = {"fused_hh_pop_solve_ft": b3.launches,
+                "sym_eig": SE.sym_eig.launches}
+    check_counts("(r) fit path", launches)
+    for row in rows:
+        if row["name"] == "fused_hh_pop_solve_ft":
+            row["launches_by_path"] = {"d0 fit (f)-(k)": row["launches"],
+                                       "objectives and fits (r)":
+                                       launches["fused_hh_pop_solve_ft"]}
+            row["launches"] += launches["fused_hh_pop_solve_ft"]
+            row["onchip_ms_per_generation"] = (s16 - s8) * 1e3 / 8
+
+    # ---- K2 against its plain version and torch.linalg.eigh ---------------
+    rs = np.random.RandomState(1)
+    q = rs.randn(1000, 4, 4)
+    a = torch.tensor(q @ q.transpose(0, 2, 1) + 0.1 * np.eye(4), dtype=f32,
+                     device=dev)
+    ms_k, (w_k, v_k) = cuda_ms(lambda: SE.sym_eig(a), reps=50)
+    ms_p, (w_p, v_p) = cuda_ms(lambda: SE.sym_eig_plain(a), reps=1,
+                               warm=False)
+    sweeps = SE.sym_eig_plain.last_sweeps
+    ms_l, (w_l, v_l) = cuda_ms(lambda: torch.linalg.eigh(a), reps=5)
+    same = torch.equal(w_k, w_p) and torch.equal(v_k, v_p)
+    err = float(torch.maximum((w_k - w_p).abs().max(),
+                              (v_k - v_p).abs().max()))
+    scale = a.abs().amax(dim=(-2, -1), keepdim=True)
+    d_w = float(((w_k - w_l).abs() / scale[..., 0]).max())
+    rec = v_k @ torch.diag_embed(w_k) @ v_k.transpose(-2, -1)
+    d_rec = float(((rec - a).abs() / scale).max())
+    log(f"(r) K2 on 1,000 SPD 4 x 4: kernel vs plain "
+        f"{'bit-identical' if same else f'max |d| {err:.3e}'} ({sweeps} "
+        f"sweeps); vs torch.linalg.eigh: eigenvalues {d_w:.3e}, B diag(d) "
+        f"B^T {d_rec:.3e} of the scale (tol {K2_TOL}); kernel {ms_k:.4f} "
+        f"ms, plain {ms_p:.2f} ms, torch.linalg.eigh {ms_l:.4f} ms")
+    if not (d_w <= K2_TOL and d_rec <= K2_TOL and err <= K2_TOL):
+        raise RuntimeError("(r) K2 disagrees")
+    # per matrix and sweep: 6 rotations of ~15 operations and 3 x 4 row
+    # updates of 6; the matrices read once, w and v written once
+    b_ms, b_by = roofline(1000 * sweeps * 6 * (15 + 3 * 4 * 6),
+                          1000 * (16 + 4 + 16) * 4)
+    rows.append(dict(
+        name="sym_eig", route="cuda", source="ionflux_torch/csrc/sym_eig.cu",
+        replaces="none (no pallas_call): jnp.linalg.eigh in "
+                 "ionflux/fit/cmaes.py:260",
+        launches=launches["sym_eig"], max_abs_err=err, ms=ms_k,
+        plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=ms_l,
+        design="warp-per-matrix-cyclic-jacobi", sweeps=sweeps,
+        layer_pass=NO_PASS))
+
+
+def surface_path(dev, rows) -> None:
+    """Phase (s): the on-device derivative surface on the activation
+    protocol at -60 mV (80,001 samples, tests/test_spline.py's case)
+    against the scipy path, and K1 against its plain version on that
+    protocol's segments."""
+    from ionflux_torch import protocols as P
+    from ionflux_torch.data import noise_sequence
+    from ionflux_torch.eval import simulate_family
+    from ionflux_torch.models.registry import HH_B06, SYNTHETIC
+    from ionflux_torch.ops import spline as SP
+    from ionflux_torch.surface import (SurfaceConfig, estimate_gate_surface,
+                                       estimate_gate_surface_ondevice,
+                                       smoothed_segments)
+
+    f32 = torch.float32
+    proto = P.activation_protocol(-60.0, 0.1, device=dev)
+    # the grid made on the host, as the JAX test's: a float32 linspace made
+    # on the card need not be strictly increasing, which FITPACK refuses
+    t1 = torch.tensor(np.linspace(0.0, 8000.0, 80001), dtype=f32,
+                      device=dev)
+    cur = (simulate_family("hh", HH_B06, [proto], t1, SYNTHETIC)[0]
+           .double().cpu().numpy() + noise_sequence([(80001,)], seed=0)[0])
+    cur_t = torch.tensor(cur, dtype=f32, device=dev)
+    mask1, _ = P.s_study_masks()
+    cfg = SurfaceConfig()
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, a2, d2 = estimate_gate_surface_ondevice(proto, t1, cur_t, HH_B06,
+                                               SYNTHETIC, mask1, cfg)
+    s_dev = time.perf_counter() - t
+    launches = {"tridiag_solve_batched": SP.tridiag_solve_batched.launches}
+    check_counts("(s) surface path", launches)
+    t = time.perf_counter()
+    _, a1, d1 = estimate_gate_surface(proto, t1, cur, HH_B06, SYNTHETIC,
+                                      mask1, cfg)
+    s_host = time.perf_counter() - t
+    rms_a = float(np.sqrt(np.mean((a1 - a2) ** 2)))
+    rms_d = float(np.sqrt(np.mean((d1 - d2) ** 2)))
+    log(f"(s) on-device surface: {len(a2)} points in {s_dev:.3f} s (the "
+        f"r-gate solve included); scipy path {s_host:.3f} s; RMS a "
+        f"{rms_a:.3e} (tol {SURF_RMS_A}), dadt {rms_d:.3e} (tol "
+        f"{SURF_RMS_D})")
+    if not (len(a1) == len(a2) and rms_a < SURF_RMS_A
+            and rms_d < SURF_RMS_D):
+        raise RuntimeError("(s) the on-device surface disagrees with the "
+                           "scipy path")
+    # K1 against its plain version on the protocol's segments
+    _, smoothed = smoothed_segments(proto, t1, cur_t, cfg.smooth_window)
+    dt = float(t1[1] - t1[0])
+    system, _ = SP._spline_systems(smoothed, dt, "not-a-knot")
+    lengths = system[4]
+    ms_k, x_k = cuda_ms(lambda: SP.tridiag_solve_batched(*system), reps=20)
+    ms_p, x_p = cuda_ms(lambda: SP.tridiag_solve_batched_plain(*system),
+                        reps=1, warm=False)
+    err = float((x_k - x_p).abs().max())
+    d_k = torch.cat(SP.spline_derivative_segments(smoothed, dt))
+    d_p = torch.cat(SP.spline_derivative_segments(
+        [x.cpu() for x in smoothed], dt)).to(dev)
+    rel = float((d_k - d_p).abs().max() / d_p.abs().max())
+    log(f"(s) K1 on {len(lengths)} systems (longest {max(lengths)} rows): "
+        f"kernel {ms_k:.4f} ms, plain {ms_p:.1f} ms on the card; x "
+        f"{'bit-identical' if torch.equal(x_k, x_p) else f'max |d| {err:.3e}'}"
+        f"; didt vs the plain (CPU) path {rel:.3e} of its scale (tol "
+        f"{K1_RTOL})")
+    if not rel <= K1_RTOL:
+        raise RuntimeError(f"(s) K1 vs plain on didt {rel} > {K1_RTOL}")
+    n = sum(lengths)
+    # forward 2 products, 2 differences, 2 quotients a row; back 1 and 1
+    b_ms, b_by = roofline(8 * n, (5 * n + 3 * len(lengths)) * 4)
+    rows.append(dict(
+        name="tridiag_solve_batched", route="cuda",
+        source="ionflux_torch/csrc/tridiag.cu",
+        replaces="none (no pallas_call): lax.scan in "
+                 "ionflux/ops/spline.py:23",
+        launches=launches["tridiag_solve_batched"], max_abs_err=err,
+        ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, systems=len(lengths), longest_system=max(lengths),
+        design="thread-per-system", layer_pass=NO_PASS))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1693,10 +2049,14 @@ def main() -> int:
     wide_check(dev)
     validation_path(dev, rows)
     log(f"validation path done at {time.perf_counter() - t_start:.0f} s")
-    d0_path(dev, rows)
+    d3, d5 = d0_path(dev, rows)
     log(f"d0 path done at {time.perf_counter() - t_start:.0f} s")
+    fit_path(dev, rows, d3, d5)
+    log(f"fit path (r) done at {time.perf_counter() - t_start:.0f} s")
     training_path(dev, rows)
     log(f"training path done at {time.perf_counter() - t_start:.0f} s")
+    surface_path(dev, rows)
+    log(f"surface path (s) done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- (e) results -------------------------------------------------------
     print(json.dumps({"kernels": rows}), flush=True)

@@ -25,11 +25,15 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # library name -> source; fused_solve: the MLP trip kernel (sweep, popsweep,
 # population) and the MLP while-loop sweep; hh_solve: the HH population trip
-# kernel and the HH RK4 kernel; bias_probe: the Mosaic bias-broadcast probe
+# kernel and the HH RK4 kernel; bias_probe: the Mosaic bias-broadcast probe;
+# tridiag: the spline's Thomas solve (K1); sym_eig: the Jacobi
+# eigendecomposition of the device-resident CMA-ES (K2)
 SOURCES = {
     "fused_solve": os.path.join(_PKG, "csrc", "fused_solve.cu"),
     "hh_solve": os.path.join(_PKG, "csrc", "hh_solve.cu"),
     "bias_probe": os.path.join(_PKG, "csrc", "bias_probe.cu"),
+    "tridiag": os.path.join(_PKG, "csrc", "tridiag.cu"),
+    "sym_eig": os.path.join(_PKG, "csrc", "sym_eig.cu"),
 }
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -148,6 +152,21 @@ _SIGNATURES = {
             _PTR,                               # stream
         ],
     },
+    "tridiag": {
+        "ionflux_thomas": [
+            _PTR, _PTR, _PTR, _PTR,             # dl, d, du, b
+            _PTR, _PTR, _PTR,                   # x, cp, dp
+            _PTR, _PTR, _I32,                   # start, len, n_sys
+            _PTR,                               # stream
+        ],
+    },
+    "sym_eig": {
+        "ionflux_sym_eig": [
+            _PTR, _PTR, _PTR,                   # a, w, v
+            _I32, _I32, _I32,                   # m, n, max_sweeps
+            _PTR,                               # stream
+        ],
+    },
 }
 
 
@@ -204,12 +223,16 @@ class Graph:
     next replay overwrites.  ``fn`` must make no host synchronisation and
     no host-to-device copy, and must have run eagerly once on the device
     before (kernels built, caches filled).  Each replay adds the launches it
-    recorded to the wrappers' counts (``count_launch``)."""
+    recorded to the wrappers' counts (``count_launch``).  ``generators``
+    (CUDA ``torch.Generator``s that ``fn`` draws from) are registered with
+    the graph, so each replay draws new numbers and advances them."""
 
-    def __init__(self, fn, *inputs):
+    def __init__(self, fn, *inputs, generators=()):
         global _captured
         self.inputs = inputs
         self._graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self._graph.register_generator_state(gen)
         _captured = {}
         try:
             with torch.cuda.graph(self._graph):

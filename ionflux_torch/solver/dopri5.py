@@ -333,29 +333,30 @@ def _fn_key(fn):
 
 class _BlockGraph:
     """One solve setting's block, captured as a CUDA graph on static copies
-    of the state, the constants and the right-hand side's arguments."""
+    of the state, the constants and the right-hand side's arguments.
+    ``block(rhs, st, c)`` advances the state ``st`` (a NamedTuple of
+    tensors) in place."""
 
-    def __init__(self, fn, args, st: _State, c: _Consts, max_steps: int,
-                 buffer_size: int):
+    def __init__(self, block, fn, args, st, c):
         self.args = _clone(args)
-        self.st = _State(*[x.clone() for x in st])
+        self.st = type(st)(*[x.clone() for x in st])
         self.c = _clone(c)
         self.leaves = []
         _structure((self.st, self.c, self.args), self.leaves)
         rhs = lambda t, y: fn(t, y, self.args)  # noqa: E731
 
-        def block(*_):
-            _block(rhs, self.st, self.c, max_steps, buffer_size)
+        def run(*_):
+            block(rhs, self.st, self.c)
 
         try:
-            self.graph = Graph(block)
+            self.graph = Graph(run)
         except RuntimeError as exc:
             raise RuntimeError(
                 "odeint: capturing the step block as a CUDA graph failed; "
                 "the right-hand side must make no host read or host-to-"
                 f"device copy ({exc})") from exc
 
-    def load(self, st: _State, c: _Consts, args) -> _State:
+    def load(self, st, c, args):
         """Copy a solve's state, constants and arguments into the static
         buffers; returns the static state the replays advance."""
         leaves = []
@@ -370,29 +371,29 @@ class _BlockGraph:
 _GRAPHS: dict = {}
 
 
-def _run_blocks(fn, args, st: _State, c: _Consts, max_steps: int,
-                buffer_size: int) -> _State:
-    """Advance st block by block until it stops, one host read per block.
-    On a CUDA device the blocks replay a captured graph (the first solve of
-    a setting runs its first block eagerly, then captures), one block queued
-    ahead of the flag the host reads; on the CPU they run eagerly.  Returns
-    the state holding the result."""
+def _run_blocks(block, settings: tuple, fn, args, st, c):
+    """Advance st block by block until it stops (``st.stop``), one host read
+    per block; ``block(rhs, st, c)`` runs one block in place and
+    ``settings`` are its host settings.  On a CUDA device the blocks replay
+    a captured graph (the first solve of a setting runs its first block
+    eagerly, then captures), one block queued ahead of the flag the host
+    reads; on the CPU they run eagerly.  Returns the state holding the
+    result."""
     rhs = lambda t, y: fn(t, y, args)  # noqa: E731
     if st.y.device.type != "cuda":
         while True:
-            _block(rhs, st, c, max_steps, buffer_size)
+            block(rhs, st, c)
             if bool(st.stop):
                 return st
     leaves = []
     key = (_fn_key(fn), _structure((st, c, args), leaves), str(st.y.device),
-           int(max_steps), int(buffer_size), BLOCK_STEPS)
+           settings, BLOCK_STEPS)
     g = _GRAPHS.get(key)
     if g is None:
-        _block(rhs, st, c, max_steps, buffer_size)
+        block(rhs, st, c)
         if bool(st.stop):
             return st
-        g = _GRAPHS[key] = _BlockGraph(fn, args, st, c, max_steps,
-                                       buffer_size)
+        g = _GRAPHS[key] = _BlockGraph(block, fn, args, st, c)
     st = g.load(st, c, args)
     # each block's stop flag goes to pinned host memory as the next block is
     # queued, so the host's launch of a block overlaps the run of the one
@@ -441,8 +442,10 @@ def odeint(
     ts = ts.to(dtype)
     c = _consts(ts, rtol, atol, breakpoints, error_weight, dt_max, dtype, dev)
     f, h = _start(rhs, ts[0], y0, c)
-    st = _run_blocks(fn, args, _new_state(ts[0], h, y0, f, buffer_size), c,
-                     max_steps, buffer_size)
+    st = _run_blocks(
+        lambda r, s, cc: _block(r, s, cc, max_steps, buffer_size),
+        ("odeint", int(max_steps), int(buffer_size)), fn, args,
+        _new_state(ts[0], h, y0, f, buffer_size), c)
     n_acc, n_step, done, finite = torch.stack([
         st.n_acc, st.n_step, (st.t >= c.t_end).to(torch.int64),
         torch.all(torch.isfinite(st.y)).to(torch.int64)]).tolist()

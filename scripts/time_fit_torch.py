@@ -1,30 +1,36 @@
 #!/usr/bin/env python
-"""Time the d0 fit path of one checkout of ``ionflux_torch`` on the card, to
-compare two commits inside one run.
+"""Time the d0 fit of one checkout of ``ionflux_torch`` on the card: its
+kernels, its four objectives and its two CMA-ES loops (the port's
+counterpart of ``scripts/measure_d0_objectives.py`` and
+``scripts/measure_onchip_cmaes.py``).
 
-    python3 scripts/time_fit_torch.py [--root DIR] [--reps 20] [--gens 20]
+    python3 scripts/time_fit_torch.py [--root DIR] [--reps 20]
+        [--objectives lockstep,analytic,fused,native]
 
 ``--root`` names the checkout whose ``ionflux_torch`` and
 ``scripts/train_d0_torch.py`` are timed (default: this one); its kernels are
 built there at first use.  The protocols and chip_smoke.py's helpers come
-from this checkout.  The shapes are chip_smoke.py's (i), (j) and (h):
+from this checkout.
 
-- B3 (``fused_hh_pop_solve_ft``) at 128 lanes (HH_B06 x exp(0.1 N(0, 1)),
-  ``RandomState(0)``) and at 8 (the first 8 of them) on Pr3 sweep 0 (82,581
-  knots), rtol 1e-5, 2048 trips: ms (CUDA events, mean of ``--reps``
-  launches after 51 more), executed trips (``n_valid``), ms per executed
-  trip and a SHA-256 of the executed records, the outcome and the lane
-  flags (equal hashes: identical records);
-- B5 (``fused_hh_rk4``) at 128 lanes on the same sweep, 10 substeps per 1 ms
-  output (82,580 substeps): ms (mean of ``--reps`` / 4 launches after a
-  warm-up), us per substep and the trace's SHA-256;
-- the d0 objective at the CMA-ES population of 8 on the recorded Pr3 + Pr5
-  (16 launches per evaluation) against stand-in data (random numbers of the
-  data's lengths: the work does not depend on the data): seconds per
-  generation on the host clock, the mean of ``--gens`` generations after
-  two warm-up ones (each generation a new candidate set from a fixed seed;
-  each call ends in the host copy of the SSE), and the device's busy time
-  in a profiler trace of one more generation, so its idle share.
+- kernels, at chip_smoke.py's (i) and (j) shapes: B3
+  (``fused_hh_pop_solve_ft``) at 128 lanes (HH_B06 x exp(0.1 N(0, 1)),
+  ``RandomState(0)``) and at 8 (the first 8) on Pr3 sweep 0 (82,581 knots),
+  rtol 1e-5, 2048 trips: ms (CUDA events, mean of ``--reps`` launches after
+  51 more), executed trips, ms per executed trip and a SHA-256 of the
+  executed records (equal hashes: identical records); B5 (``fused_hh_rk4``)
+  at 128 lanes on the same sweep, 10 substeps per 1 ms output: ms, us per
+  substep and the trace's SHA-256;
+- objectives, on ``generate_data``'s data: each of ``--objectives`` at
+  populations 8, 64 and 128: seconds per generation on the host clock (each
+  call ends in the host copy of the SSE), the median of 5 generations after
+  a first one (each generation P0 x exp(0.1 N(0, 1)), numpy
+  ``default_rng(0)``), and at 8 the device's busy time in a profiler trace
+  of one more generation, so its idle share; the native objective at 8 only
+  (one member at a time on the host);
+- fits (with any objective): the full d0 fit over the analytic objective by
+  the host loop (``fit.cmaes.cmaes``) and by ``fit.cmaes.cmaes_onchip``
+  (JAX's settings): generations, wall seconds, seconds per generation and
+  found / reference parameters.
 
 Prints one JSON line with the checkout, the card's name and power limit.
 Run parent, change, change, parent in one call to compare.  Without a card
@@ -79,7 +85,10 @@ def _busy_ms(fn) -> float:
 SPIN = 50   # B3 launches before its timing
 
 
-def main(root: str, reps: int, gens: int) -> dict:
+POPS = (8, 64, 128)
+
+
+def main(root: str, reps: int, objectives=()) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("time_fit_torch: no CUDA device")
     root = os.path.abspath(root)
@@ -126,28 +135,68 @@ def main(root: str, reps: int, gens: int) -> dict:
                                "us_per_substep": ms * 1e3 / substeps,
                                "trace_sha256": _sha([ys])}
 
-    rs = np.random.RandomState(0)
-    d3, d5 = rs.randn(57806), rs.randn(92902)
-    pop = 8
-    objective = T.make_objective_fused(d3, d5, pop, trips=C.HH_TRIPS,
-                                       device=dev)
-    cands = [T.P0[None] * np.exp(0.1 * rs.randn(pop, 4))
-             for _ in range(gens + 3)]
-    for xs in cands[:2]:
-        objective(xs)
-    t = time.perf_counter()
-    for xs in cands[2:2 + gens]:
-        objective(xs)
-    secs = (time.perf_counter() - t) / gens
-    launches = H.fused_hh_pop_solve_ft.launches
-    busy = _busy_ms(lambda: objective(cands[-1]))
-    fit = {"s_per_generation": secs, "device_busy_ms": busy,
-           "idle_share": 1.0 - busy / (secs * 1e3) if busy > 0 else None,
-           "launches_per_generation":
-               H.fused_hh_pop_solve_ft.launches - launches}
-    out = {"root": root, "card": C.device_line(), "kernels": kernels,
-           "d0_generation": fit}
+    out = {"root": root, "card": C.device_line(), "kernels": kernels}
+    if objectives:
+        d3, d5 = T.generate_data(device=dev)
+        out["objectives"] = _objectives(T, d3, d5, dev, objectives)
+        out["fits"] = _fits(T, d3, d5, dev)
     print(json.dumps(out), flush=True)
+    return out
+
+
+def _objectives(T, d3, d5, dev, names) -> dict:
+    """Seconds per generation of each objective at each population: the
+    median of 5 generations after a first one."""
+    rng = np.random.default_rng(0)
+    make = {"lockstep": lambda p: T.make_objective(d3, d5, p, device=dev),
+            "analytic": lambda p: T.make_objective_analytic(d3, d5, p,
+                                                            device=dev),
+            "fused": lambda p: T.make_objective_fused(d3, d5, p, device=dev),
+            "native": lambda p: T.make_objective_native(d3, d5)}
+    out = {}
+    for name in names:
+        for pop in (8,) if name == "native" else POPS:
+            obj = make[name](pop)
+            times = []
+            for k in range(6):
+                xs = T.P0[None] * np.exp(rng.normal(0.0, 0.1, (pop, 4)))
+                t = time.perf_counter()
+                f = obj(xs)
+                times.append(time.perf_counter() - t)
+            med = float(np.median(times[1:]))
+            row = {"s_per_generation": med, "first_s": times[0],
+                   "finite": int(np.isfinite(f).sum())}
+            if name != "native" and pop == 8:
+                busy = _busy_ms(lambda: obj(xs))
+                row["device_busy_ms"] = busy
+                row["idle_share"] = (1.0 - busy / (med * 1e3) if busy > 0
+                                     else None)
+            out[f"{name} {pop}"] = row
+    return out
+
+
+def _fits(T, d3, d5, dev) -> dict:
+    """The full d0 fit over the analytic objective, by the host loop and
+    device-resident."""
+    from ionflux_torch.fit.cmaes import cmaes, cmaes_onchip
+
+    pop = 8
+    obj = T.make_objective_analytic(d3, d5, pop, device=dev)
+    obj(T.P0[None])
+    kw = dict(sigma0=T.P0 * 0.1, bounds=(T.P0 * 0.1, T.P0 * 10.0),
+              max_unchanged_iterations=100, unchanged_threshold=1e-3)
+    out = {}
+    for name, run in (
+            ("host cmaes", lambda: cmaes(obj, T.P0, **kw)),
+            ("cmaes_onchip", lambda: cmaes_onchip(obj.device_fn, T.P0,
+                                                  device=dev, **kw))):
+        t = time.perf_counter()
+        res = run()
+        secs = time.perf_counter() - t
+        out[name] = {"generations": res.iterations, "wall_s": secs,
+                     "s_per_generation": secs / res.iterations,
+                     "best_sse": res.fx,
+                     "found_over_reference": (res.x / T.REF_D0).tolist()}
     return out
 
 
@@ -156,6 +205,9 @@ if __name__ == "__main__":
     ap.add_argument("--root", default=HERE,
                     help="the checkout whose ionflux_torch is timed")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--gens", type=int, default=20)
+    ap.add_argument("--objectives",
+                    default="lockstep,analytic,fused,native",
+                    help="comma-separated; empty: the kernels only (no "
+                         "objective, no fit)")
     args = ap.parse_args()
-    main(args.root, args.reps, args.gens)
+    main(args.root, args.reps, [x for x in args.objectives.split(",") if x])

@@ -83,7 +83,9 @@ def test_default_popsize_and_what_is_ported():
     assert TC._default_popsize(4) == 8
     assert TC.CMAESResult.__dataclass_fields__.keys() == (
         JC.CMAESResult.__dataclass_fields__.keys())
-    assert not hasattr(TC, "cmaes_onchip") and not hasattr(
+    # cmaes_onchip is ported (tests/test_torch_cmaes_onchip.py);
+    # shard_objective waits for torch.distributed
+    assert hasattr(TC, "cmaes_onchip") and not hasattr(
         TC, "shard_objective")
 
 

@@ -175,13 +175,15 @@ def test_generate_data_needs_whole_lattice_blocks(scripts):
 
 def test_main_runs_debug_on_cpu(scripts, tmp_path, monkeypatch, capsys):
     """main() parses its own arguments (none at import) and stops after the
-    initial guess with --debug."""
+    initial guess with --debug; --fused takes the fused objective (with no
+    flag main takes the lockstep one, as the JAX script does)."""
     _, T = scripts
     short = [(n, v[:2 * p], dt, 2, p) for n, v, dt, _, p in RECORDINGS]
     monkeypatch.setattr(T, "RECORDINGS", short)
-    assert T.main(["--device", "cpu", "--debug", "--outdir",
+    assert T.main(["--device", "cpu", "--fused", "--debug", "--outdir",
                    str(tmp_path / "d0")]) == 0
     out = capsys.readouterr().out
+    assert "--fused" in out and "kernel launches per evaluation" in out
     assert "Initial guess error:" in out
     assert os.path.exists(tmp_path / "d0" / "data.npz")
     assert not os.path.exists(tmp_path / "d0" / "model-parameters.txt")

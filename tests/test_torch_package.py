@@ -57,7 +57,8 @@ def test_port_imports_neither_jax_nor_ionflux():
         "          'ops.hh_solve', 'ops._build', 'fit.cmaes',\n"
         "          'ops.fused_solve', 'ops.bias_probe', 'models.gt_a',\n"
         "          'studies', 'surface', 'data', 'fit.train',\n"
-        "          'ops.smoothing'):\n"
+        "          'ops.smoothing', 'solver.batched', 'solver.analytic',\n"
+        "          'native', 'ops.spline', 'ops.sym_eig'):\n"
         "    assert 'ionflux_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
@@ -975,3 +976,120 @@ def test_fit_chunk_graph_on_card(card):
     assert torch.equal(torch.cat(parts), l_one)
     for (a, b), (c, d) in zip(cur.layers, one.layers):
         assert torch.equal(a, c) and torch.equal(b, d)
+
+
+@pytest.mark.cuda
+def test_tridiag_kernel_matches_plain_on_card(card):
+    """K1 (one thread per system) against its plain loop on the CPU, on a
+    batch of systems of 1, 2, 40 and 5,000 rows: bit for bit (every product,
+    sum and quotient rounded on its own in both); one launch counted."""
+    from ionflux_torch.ops import spline as TS
+
+    rs = np.random.RandomState(0)
+    lengths = [40, 1, 5000, 2]
+    n = sum(lengths)
+    dl, d, du, b = (torch.from_numpy(x.astype(np.float32)) for x in (
+        rs.uniform(0.5, 1.0, n), rs.uniform(3.0, 4.0, n),
+        rs.uniform(0.5, 1.0, n), rs.randn(n)))
+    want = TS.tridiag_solve_batched(dl, d, du, b, lengths)
+    before = TS.tridiag_solve_batched.launches
+    got = TS.tridiag_solve_batched(*(x.to(card) for x in (dl, d, du, b)),
+                                   lengths)
+    torch.cuda.synchronize()
+    assert TS.tridiag_solve_batched.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, m", [(4, 1000), (1, 3), (16, 20)])
+def test_sym_eig_kernel_matches_plain_on_card(card, n, m):
+    """K2 (one warp per matrix) against its plain version on the same card,
+    bit for bit, and against torch.linalg.eigh: eigenvalues and
+    B diag(d) B^T within 1e-5 of the matrix's scale."""
+    from ionflux_torch.ops import sym_eig as TS
+
+    rs = np.random.RandomState(n)
+    q = rs.randn(m, n, n)
+    a = torch.from_numpy((q @ q.transpose(0, 2, 1)
+                          + 0.1 * np.eye(n)).astype(np.float32))
+    w_p, v_p = TS.sym_eig_plain(a.to(card))
+    before = TS.sym_eig.launches
+    w_k, v_k = TS.sym_eig(a.to(card))
+    torch.cuda.synchronize()
+    assert TS.sym_eig.launches == before + 1
+    assert torch.equal(w_k, w_p) and torch.equal(v_k, v_p)
+    scale = a.abs().amax(dim=(-2, -1), keepdim=True)
+    w_ref = torch.linalg.eigh(a.double())[0].float()
+    assert torch.all((w_k.cpu() - w_ref).abs() <= 1e-5 * scale[..., 0])
+    rec = (v_k @ torch.diag_embed(w_k) @ v_k.transpose(-2, -1)).cpu()
+    assert torch.all((rec - a).abs() <= 1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_odeint_batched_graph_replay_equals_stepwise_on_card(card):
+    """The blocked lockstep solve on the card (its first block eager, then
+    the captured block replayed; a second solve replays only) equals the
+    per-step loop bit for bit, with a lane dead from the start."""
+    from ionflux_torch.solver import batched as TBa
+
+    base = np.array([float(x) for x in TR.HH_B06], np.float32)
+    ps = torch.from_numpy(base[None] * np.exp(
+        0.1 * np.random.RandomState(0).randn(3, 8)).astype(np.float32))
+    proto = TP.activation_protocol(20.0, 1.0, device=card)
+    ts = torch.linspace(0.0, 8000.0, 801, device=card)
+    y0 = torch.tensor([[0.0, 1.0], [float("nan"), 1.0], [0.0, 1.0]],
+                      device=card)
+    args = (ps.to(card), proto)
+    kw = dict(rtol=1e-5, atol=1e-7, return_stats=True)
+    fn = _rhs_hh_pop
+    want = TBa._odeint_batched_stepwise(fn, y0, ts, args, **kw)
+    for _ in range(2):
+        got = TBa.odeint_batched(fn, y0, ts, args, **kw)
+        assert (got[1].n_accepted, got[1].n_steps) == (
+            want[1].n_accepted, want[1].n_steps)
+        assert torch.equal(got[1].ok, want[1].ok)
+        assert torch.equal(got[0], want[0])
+    assert got[1].ok.tolist() == [True, False, True]
+
+
+def _rhs_hh_pop(t, y, args):
+    ps, proto = args
+    v = TP.voltage(proto, t)
+    k1 = ps[:, 0] * torch.exp(ps[:, 1] * v)
+    k2 = ps[:, 2] * torch.exp(-ps[:, 3] * v)
+    k3 = ps[:, 4] * torch.exp(ps[:, 5] * v)
+    k4 = ps[:, 6] * torch.exp(-ps[:, 7] * v)
+    return torch.stack([k1 * (1.0 - y[:, 0]) - k2 * y[:, 0],
+                        -k3 * y[:, 1] + k4 * (1.0 - y[:, 1])], dim=-1)
+
+
+@pytest.mark.cuda
+def test_cmaes_onchip_replays_its_chunks_on_card(card):
+    """cmaes_onchip on the card: one chunk of 8 generations captured (K2,
+    the draw and the objective inside) and replayed with one host read a
+    chunk; it converges as tests/test_fit.py's log-space case does, K2's
+    launches are counted through the replays, and the count is exact."""
+    from ionflux_torch.fit.cmaes import cmaes_onchip
+    from ionflux_torch.ops import sym_eig as TS
+
+    opt = np.array([3e-4, 5e-2, 1e-5, 7e-2])
+    log_opt = torch.log(torch.tensor(opt, dtype=torch.float32, device=card))
+
+    def batch(xs):
+        return torch.sum((torch.log(xs) - log_opt) ** 2, dim=1)
+
+    before = TS.sym_eig.launches
+    res = cmaes_onchip(batch, opt * 3.0, 0.1 * opt * 3.0,
+                       bounds=(opt * 0.01, opt * 100.0), seed=1,
+                       device=card)
+    np.testing.assert_allclose(res.x, opt, rtol=1e-3)
+    assert res.iterations < 2000 and res.evaluations == res.iterations * 8
+    chunks = len(res.history) - 1
+    # one eager warm-up generation, then every replayed chunk (the
+    # lookahead one included) launches K2 once a generation
+    assert TS.sym_eig.launches - before == 1 + 8 * (chunks + 1)
+    cut = cmaes_onchip(batch, opt * 3.0, 0.1 * opt * 3.0,
+                       bounds=(opt * 0.01, opt * 100.0), seed=1,
+                       max_iterations=13, device=card)
+    assert cut.iterations == 13 and cut.hit_max_iterations
+    assert [h[0] for h in cut.history] == [0, 8, 13]
