@@ -149,6 +149,28 @@ just after:
       bounds), with seconds for both; K1 (``ops.spline.
       tridiag_solve_batched``, one launch for the protocol's segments)
       against its plain version (didt within 1e-5 of its scale);
+The other solvers and neural-ODE training through the solve (no kernel:
+torch ops, replayed from CUDA graphs):
+  (t) ``eval.simulate(method=...)`` for adams, vcabm and rosenbrock on
+      HH_B06 over ``activation_protocol(0.0)`` (801 outputs to 8,000 ms,
+      tests/test_implicit.py's case) and on d1 over the 20 mV activation
+      step's first 2,000 ms, each against ``odeint``'s current (2e-3; Adams
+      5e-3 within 50 ms of a step edge, as JAX's own Adams); to 1,200 ms
+      (the 1,000 ms edge included) each blocked solve against its
+      stepwise loop bit for bit, with ms per step; the device's idle share
+      to 30 ms; ``odeint_rk4`` at a constant 0 mV (250 ms) against ``odeint``
+      and the closed form (1e-5);
+  (u) ``scripts/train_neural_ode_torch.py``'s ``main(--protocol act)`` at
+      full width (2-200x5-1, pretrained) for three RK4-mode updates (the
+      RK4 interval's forward and vector-Jacobian product captured as two
+      CUDA graphs at the first, replayed 300 times an update) and two
+      adjoint-mode updates (the backward interval captured once); ms per
+      update against its bound and chain floor, the graphs' kernels; on a
+      40 ms window the replayed updates against eager ones (bit for bit)
+      and both modes' idle share; the adjoint's gradient against backprop
+      through RK4 (n_sub 32; relative error below 1e-3); JAX's
+      out/neural-ode/model.npz through the RK4 solve to 1,500 ms, card
+      against CPU (1e-4 of the largest current);
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
@@ -2012,6 +2034,297 @@ def surface_path(dev, rows) -> None:
         design="thread-per-system", layer_pass=NO_PASS))
 
 
+# (t): the other solvers on eval.simulate's route (tests/test_implicit.py's
+# case and d1 over one activation step), each against odeint (dopri5)
+METHODS = ("adams", "vcabm", "rosenbrock")
+METHOD_TOL = 2e-3     # each method's current vs odeint's
+# ... but Adams (ABM4) within 50 ms of a step edge: JAX's own Adams differs
+# from its odeint by 2.45e-3 at the 7,000 ms edge of the 0 mV case
+ADAMS_EDGE_TOL = 5e-3
+EDGES_MS = (1000.0, 6000.0, 7000.0, 7500.0)   # the activation protocols'
+RK4_T_SUB = 4         # odeint_rk4's substeps per 1 ms output interval
+RK4_T_TOL = 1e-5      # its gates vs odeint and the closed form (the test's)
+HEAD_MS = 1200.0      # the blocked/stepwise comparison and the timed solves
+                      # run to here (the 1,000 ms step edge included)
+PROFILE_MS = 30.0     # the profiled solves (each kernel is a trace event)
+# (u): neural-ODE training through the solve
+NODE_STEPS = (3, 2)   # Adam updates by RK4 (the first captures the
+                      # interval's graphs) and by the adjoint
+ADJ_RK4_SUB = 32      # the fine RK4 the adjoint's gradient is held against
+ADJ_REL = 1e-3        # adjoint vs backprop through a fine RK4 (JAX's bound)
+MLP_LEVELS = 8        # dependent FMA levels of a 200-wide dot as a tree
+CARRY_RTOL = 1e-4     # the carried net's RK4 current, card vs CPU
+
+
+def kernels_in(call) -> int:
+    """Device kernels one ``call()`` runs (the profiler's count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def idle_text(secs: float, busy_ms: float) -> str:
+    """The idle share of an unprofiled run of ``secs`` whose profiled
+    twin kept the device busy ``busy_ms`` (negative where the profiled
+    kernels ran longer than the whole unprofiled run)."""
+    if busy_ms <= 0:
+        return "not measured"
+    return (f"busy {busy_ms:.1f} ms of {1e3 * secs:.1f} unprofiled, idle "
+            f"{100 * (1 - busy_ms / (1e3 * secs)):.1f}%")
+
+
+def method_path(dev) -> None:
+    """Phase (t): eval.simulate(method=...) for adams, vcabm and rosenbrock
+    on HH_B06 over activation_protocol(0.0) (801 outputs to 8,000 ms) and on
+    d1 (NN-f, out/d1) over the 20 mV activation step's first 2,000 ms (201
+    outputs), each against odeint's current; each blocked solve against
+    its stepwise loop (bit for bit), ms per step and the device's idle
+    share; odeint_rk4 at a constant 0 mV against odeint and the closed
+    form."""
+    from ionflux_torch import eval as E
+    from ionflux_torch import protocols as P
+    from ionflux_torch.models.registry import HH_B06, SYNTHETIC
+    from ionflux_torch.solver import adams, fixed, implicit, odeint, vcabm
+    from ionflux_torch.utils.ckpt import load_pytree
+
+    solvers = {"adams": (adams.odeint_adams, adams._adams_stepwise),
+               "vcabm": (vcabm.odeint_vcabm, vcabm._vcabm_stepwise),
+               "rosenbrock": (implicit.odeint_rosenbrock,
+                              implicit._rosenbrock_stepwise)}
+    d1 = load_pytree(os.path.join(ROOT, "out", "d1", "model.npz"), "nnf",
+                     device=dev)
+    cases = [("hh", "HH_B06, 0 mV, 8 s", HH_B06,
+              P.activation_protocol(0.0, device=dev),
+              torch.linspace(0.0, 8000.0, 801, device=dev)),
+             ("nnf", "d1, 20 mV, 2 s", d1,
+              P.activation_protocol(20.0, device=dev),
+              torch.linspace(0.0, 2000.0, 201, device=dev))]
+    kw = dict(rtol=1e-6, atol=1e-8)
+    for kind, label, params, proto, ts in cases:
+        ref = E.simulate(kind, params, proto, ts, SYNTHETIC, **kw)
+        fn, y0, args = E._model_rhs(kind), E.default_y0(kind, device=dev), (
+            params, proto)
+        v = P.voltage(proto, ts)
+        far = torch.as_tensor(np.abs(ts.cpu().numpy()[:, None] - np.array(
+            EDGES_MS)[None]).min(axis=1) >= 50.0, device=dev)
+        head = ts[ts <= HEAD_MS]   # the timed and stepwise solves' outputs
+        short = ts[ts <= PROFILE_MS]
+        steps, steps_s = {}, {}
+        for m in METHODS:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cur = E.simulate(kind, params, proto, ts, SYNTHETIC, method=m,
+                             **kw)
+            s_sim = time.perf_counter() - t
+            diff = (cur - ref).abs()
+            d, d_far = float(diff.max()), float(diff[far].max())
+            tol = ADAMS_EDGE_TOL if m == "adams" else METHOD_TOL
+            solve, stepwise = solvers[m]
+            out, secs = {}, {}
+            for name, f in (("blocked", solve), ("stepwise", stepwise)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out[name] = f(fn, y0, head, args, return_stats=True, **kw)
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t
+            (ys_b, st_b), (ys_s, st_s) = out["blocked"], out["stepwise"]
+            same = st_b == st_s and bool(torch.equal(ys_b, ys_s))
+            n = st_b.n_steps
+            log(f"(t) {m} on {label}: |dI| vs odeint {d:.3e} (tol {tol}), "
+                f"{d_far:.3e} at >= 50 ms from a step edge (tol "
+                f"{METHOD_TOL}), simulate {s_sim:.2f} s (its first call "
+                f"captures the block); to {HEAD_MS:.0f} ms: {st_b}; blocked "
+                f"{secs['blocked']:.3f} s "
+                f"({1e3 * secs['blocked'] / n:.3f} ms per step), stepwise "
+                f"{secs['stepwise']:.3f} s ({1e3 * secs['stepwise'] / n:.3f}"
+                f" ms per step), {'bit-identical' if same else 'DIFFERENT'}")
+            if not (d <= tol and d_far <= METHOD_TOL and same and st_b.ok):
+                raise RuntimeError(f"(t) {m} on {label}: |dI| {d}, blocked "
+                                   f"{st_b} vs stepwise {st_s}")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            steps[m] = solve(fn, y0, short, args, return_stats=True,
+                             **kw)[1].n_steps
+            torch.cuda.synchronize()
+            steps_s[m] = time.perf_counter() - t
+        idle = {m: idle_text(steps_s[m], profiled(
+            lambda f=solvers[m][0]: f(fn, y0, short, args, **kw), "none")[1])
+            for m in METHODS}
+        log(f"(t) {label}, each blocked solve to {PROFILE_MS:.0f} ms "
+            f"profiled: " + "; ".join(f"{m} ({steps[m]} steps) {idle[m]}"
+                                      for m in METHODS))
+
+    # odeint_rk4 on tests/test_solver.py's case (HH_B06 at a constant 0 mV,
+    # 1 ms outputs, 4 substeps), to 250 ms, against odeint and the closed
+    # form
+    proto = P.Protocol(torch.tensor(0.0, device=dev),
+                       torch.tensor(5000.0, device=dev),
+                       torch.tensor([0.0, 0.0], device=dev))
+    ts = torch.linspace(0.0, 250.0, 251, device=dev)
+    fn, y0 = E._model_rhs("hh"), E.default_y0("hh", device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ys = fixed.odeint_rk4(fn, y0, ts, (HH_B06, proto), n_sub=RK4_T_SUB)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    ref = odeint(fn, y0, ts, (HH_B06, proto), **kw)
+    p = [float(x) for x in HH_B06]
+    k = (p[0], p[2], p[4], p[6])   # the rates at 0 mV
+    a_inf, r_inf = k[0] / (k[0] + k[1]), k[3] / (k[2] + k[3])
+    tt = ts.double().cpu().numpy()
+    exact = np.stack([a_inf * (1 - np.exp(-(k[0] + k[1]) * tt)),
+                      r_inf + (1 - r_inf) * np.exp(-(k[2] + k[3]) * tt)], -1)
+    d = float((ys - ref).abs().max())
+    d_x = float(np.abs(ys.double().cpu().numpy() - exact).max())
+    n = (ts.shape[0] - 1) * RK4_T_SUB
+    log(f"(t) odeint_rk4 (n_sub {RK4_T_SUB}) on HH_B06 at a constant 0 mV: "
+        f"max |dy| vs odeint {d:.3e}, vs the closed form {d_x:.3e} (tol "
+        f"{RK4_T_TOL}); {secs:.3f} s eager ({1e3 * secs / n:.3f} ms per "
+        f"step)")
+    if not (d <= RK4_T_TOL and d_x <= RK4_T_TOL):
+        raise RuntimeError(f"(t) odeint_rk4 vs odeint {d}, closed form {d_x}")
+
+
+def neural_ode_path(dev) -> None:
+    """Phase (u): ``train_neural_ode_torch.main(--protocol act)`` at full
+    width in both modes (NODE_STEPS Adam updates), the replayed updates
+    against eager ones (bit for bit, on a 40 ms window), the adjoint's
+    gradient against backprop through a fine RK4, and the carried-across
+    out/neural-ode/model.npz through the RK4 solve, card against CPU."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_neural_ode_torch as NO
+
+    from ionflux_torch import protocols as P
+    from ionflux_torch.models.registry import SYNTHETIC
+    from ionflux_torch.observe import gate_current
+    from ionflux_torch.solver import adjoint as TAD
+    from ionflux_torch.utils.ckpt import load_pytree
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for mode, steps in zip(("rk4", "adjoint"), NODE_STEPS):
+            argv = ["--protocol", "act", "--iters", str(steps), "--outdir",
+                    tmp] + (["--adjoint"] if mode == "adjoint" else [])
+            n_graphs = len(TAD._INTERVAL_GRAPHS)
+            t = time.perf_counter()
+            runs[mode] = run = NO.main(argv)
+            secs = time.perf_counter() - t
+            if not (np.isfinite(run.losses).all()
+                    and np.isfinite(run.final_mae)):
+                raise RuntimeError(f"(u) {mode}: non-finite loss or MAE")
+            log(f"(u) main({' '.join(argv[:4])}"
+                f"{' --adjoint' if mode == 'adjoint' else ''}): {secs:.1f} s;"
+                f" losses {[round(x, 6) for x in run.losses]}; host s per "
+                f"update {[round(x, 3) for x in run.step_s]}; final MAE vs "
+                f"clean truth {run.final_mae:.4f}")
+            if mode == "adjoint" and len(TAD._INTERVAL_GRAPHS) != n_graphs + 1:
+                raise RuntimeError("(u) the adjoint's backward interval was "
+                                   "not captured exactly once")
+    tr = runs["rk4"].trainer
+    replay_ms = 1e3 * float(np.mean(runs["rk4"].step_s[1:]))
+    adj_ms = [1e3 * x for x in runs["adjoint"].step_s]
+    flops = 3 * 300 * NO.RK4_SUB * 4 * 2 * sum(
+        int(w.numel() + b.numel()) for w, b in runs["rk4"].init)
+    b_ms, b_by = roofline(flops, 0)
+    chain = 300 * NO.RK4_SUB * 4 * len(runs["rk4"].init)
+    floor_ms = chain * MLP_LEVELS * FP32_LATENCY / (sm_clock_mhz() * 1e3)
+
+    # replayed against eager, full width, on a 40 ms window (4 intervals)
+    proto = P.activation_protocol(20.0, dt_ms=1.0, device=dev)
+    ts = torch.linspace(0.0, 40.0, 5, device=dev)
+    y0 = torch.tensor([0.0, 1.0], device=dev)
+    data = runs["rk4"].data[:5].clone()
+    pair = {g: NO.Trainer(runs["rk4"].init, proto, ts, y0, data,
+                          adjoint=False, graph=g) for g in (False, True)}
+    ms, losses = {}, {}
+    for g, trainer in pair.items():
+        trainer.step()
+        ms[g], losses[g] = cuda_ms(trainer.step, reps=1, warm=False)
+    same = bool(torch.equal(losses[False], losses[True])) and all(
+        torch.equal(a, b) for a, b in zip(pair[False].flat, pair[True].flat))
+    adj = NO.Trainer(runs["rk4"].init, proto, ts, y0, data, adjoint=True)
+    adj.step()
+    ms["adjoint"], _ = cuda_ms(adj.step, reps=1, warm=False)
+    n_fwd = kernels_in(lambda: tr._replay(0, *tr._in[:3]))
+    n_vjp = kernels_in(lambda: tr._replay(1, *tr._in))
+    busy_r = profiled(pair[True].step, "none")[1]
+    busy_a = profiled(adj.step, "none")[1]
+    log(f"(u) RK4 update (9,600 right-hand sides forward): the interval's "
+        f"forward and vector-Jacobian product captured in {tr.capture_s:.2f}"
+        f" s as {n_fwd} and {n_vjp} kernels, replayed 300 times each: "
+        f"{replay_ms:.1f} ms an update; bound {b_ms:.4f} ms ({b_by}, "
+        f"{flops / 1e9:.2f} GFLOP); chain floor {chain} dependent layer "
+        f"applications forward, {floor_ms:.3f} ms at {MLP_LEVELS} FMA "
+        f"levels each; adjoint update ms {[round(x, 1) for x in adj_ms]}")
+    log(f"(u) 40 ms window (4 intervals), two updates each: replayed vs "
+        f"eager {'bit-identical' if same else 'DIFFERENT'} (loss, net); "
+        f"eager {ms[False]:.1f} ms an update, replayed {ms[True]:.1f} ms, "
+        f"adjoint {ms['adjoint']:.1f} ms; profiled: replayed update "
+        f"{idle_text(ms[True] / 1e3, busy_r)}; adjoint update "
+        f"{idle_text(ms['adjoint'] / 1e3, busy_a)}")
+    if not same:
+        raise RuntimeError("(u) the replayed update differs from the eager "
+                           "one")
+
+    # the adjoint's gradient against backprop through a fine RK4
+    ts = torch.linspace(0.0, 500.0, 6, device=dev)
+    y0 = torch.tensor([0.1, 0.9], device=dev)
+    grads = {}
+    for kind in ("adj", "rk4"):
+        net = [(w.clone().requires_grad_(True), b.clone().requires_grad_(True))
+               for w, b in runs["rk4"].init]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "adj":
+            ys = TAD.odeint_adjoint(NO.rhs, y0, ts, (net, proto), 1e-7, 1e-9)
+        else:
+            ys = NO.odeint_rk4(NO.rhs, y0, ts, (net, proto),
+                               n_sub=ADJ_RK4_SUB)
+        (torch.mean(ys[:, 0] ** 2) + 0.3 * torch.mean(ys[:, 1])).backward()
+        torch.cuda.synchronize()
+        grads[kind] = (torch.cat([x.grad.reshape(-1) for p in net for x in p])
+                       .double(), time.perf_counter() - t)
+    (g1, s1), (g2, s2) = grads["adj"], grads["rk4"]
+    rel = float((g1 - g2).norm() / g2.norm())
+    elem = bool(((g1 - g2).abs() <= 1e-3 * g2.abs()
+                 + 1e-3 * g2.abs().max()).all())
+    log(f"(u) adjoint gradient (500 ms, 6 outputs, rtol 1e-7) vs backprop "
+        f"through RK4 (n_sub {ADJ_RK4_SUB}): relative error {rel:.2e} (tol "
+        f"{ADJ_REL}), elementwise {'within' if elem else 'OUTSIDE'} 1e-3; "
+        f"{s1:.2f} s vs {s2:.2f} s")
+    if not (rel < ADJ_REL and elem):
+        raise RuntimeError(f"(u) adjoint vs backprop RK4 {rel}")
+
+    # the carried-across JAX net through the RK4 solve: the card against
+    # the CPU (which tests/test_torch_neural_ode.py holds against JAX's)
+    path = os.path.join(ROOT, "out", "neural-ode", "model.npz")
+    cur = {}
+    for d in (dev, torch.device("cpu")):
+        params = load_pytree(path, "nnf", device=d)
+        pr = P.activation_protocol(20.0, dt_ms=1.0, device=d)
+        ts = torch.linspace(0.0, 1500.0, 151, device=d)
+        ys = NO.Trainer(params.net.layers, pr, ts,
+                        torch.tensor([0.0, 1.0], device=d),
+                        torch.zeros(151, device=d), adjoint=False).states()
+        cur[d.type] = gate_current(ys, P.voltage(pr, ts), SYNTHETIC).cpu()
+    d = float((cur["cuda"] - cur["cpu"]).abs().max())
+    scale = float(cur["cpu"].abs().max())
+    log(f"(u) out/neural-ode/model.npz through the RK4 solve (act, 151 "
+        f"outputs to 1,500 ms): card vs CPU max |dI| {d:.3e} "
+        f"({d / scale:.2e} of the largest current; tol {CARRY_RTOL})")
+    if not (d <= CARRY_RTOL * scale and bool(torch.isfinite(cur["cuda"]).all())):
+        raise RuntimeError(f"(u) carried net, card vs CPU RK4 {d}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2057,6 +2370,11 @@ def main() -> int:
     log(f"training path done at {time.perf_counter() - t_start:.0f} s")
     surface_path(dev, rows)
     log(f"surface path (s) done at {time.perf_counter() - t_start:.0f} s")
+    method_path(dev)
+    log(f"solver methods (t) done at {time.perf_counter() - t_start:.0f} s")
+    neural_ode_path(dev)
+    log(f"neural-ODE training (u) done at {time.perf_counter() - t_start:.0f}"
+        f" s")
 
     # ---- (e) results -------------------------------------------------------
     print(json.dumps({"kernels": rows}), flush=True)

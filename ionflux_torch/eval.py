@@ -49,7 +49,8 @@ from ionflux_torch.ops.fused_solve import (
     fused_nnf_popsweep_solve_ft,
     fused_nnf_solve_ft,
 )
-from ionflux_torch.solver import odeint, odeint_chained
+from ionflux_torch.solver import (odeint, odeint_adams, odeint_chained,
+                                  odeint_rosenbrock, odeint_vcabm)
 
 _RHS = {"hh": hh_rhs, "markov": markov_rhs, "nnf": nnf_rhs, "nnd": nnd_rhs,
         "gta": gt_a_rhs}
@@ -99,23 +100,33 @@ def _solve_device(params, y0, device) -> torch.device:
         None)
 
 
+# The process-wide default solver method; the scripts' --method flag sets
+# it (scripts/common_torch.py).
+DEFAULT_METHOD = "dopri5"
+
+
 def solve_states(kind: str, params, proto: P.Protocol, ts: torch.Tensor,
                  y0=None, rtol=1e-6, atol=1e-8, method: str | None = None,
                  **kw) -> torch.Tensor:
-    """States [T, S] of one model on one protocol (method dopri5)."""
-    if method not in (None, "dopri5"):
-        raise NotImplementedError(f"method {method!r} is not ported; only "
-                                  f"dopri5")
+    """States [T, S] of one model on one protocol, by ``method``
+    (``DEFAULT_METHOD`` when None)."""
+    if method is None:
+        method = DEFAULT_METHOD
     if y0 is None:
         y0 = default_y0(kind, ts.dtype, ts.device)
-    return odeint(_model_rhs(kind), y0, ts, (params, proto), rtol=rtol,
+    solver = {"adams": odeint_adams, "vcabm": odeint_vcabm,
+              "rosenbrock": odeint_rosenbrock}.get(method, odeint)
+    return solver(_model_rhs(kind), y0, ts, (params, proto), rtol=rtol,
                   atol=atol, **kw)
 
 
 def simulate(kind: str, params, proto: P.Protocol, ts: torch.Tensor,
              c: Constants, y0=None, rtol=1e-6, atol=1e-8,
              method: str | None = None, **kw) -> torch.Tensor:
-    """Observed current [T] of one model on one protocol."""
+    """Observed current [T] of one model on one protocol (method: 'dopri5'
+    | 'adams' (ABM4) | 'vcabm' (variable order 1-12) | 'rosenbrock'
+    (implicit L-stable 2(3), stiff systems); ``DEFAULT_METHOD`` when
+    None)."""
     ys = solve_states(kind, params, proto, ts, y0, rtol, atol, method, **kw)
     return _observe(kind, ys, P.voltage(proto, ts), c)
 

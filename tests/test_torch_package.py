@@ -58,7 +58,9 @@ def test_port_imports_neither_jax_nor_ionflux():
         "          'ops.fused_solve', 'ops.bias_probe', 'models.gt_a',\n"
         "          'studies', 'surface', 'data', 'fit.train',\n"
         "          'ops.smoothing', 'solver.batched', 'solver.analytic',\n"
-        "          'native', 'ops.spline', 'ops.sym_eig'):\n"
+        "          'native', 'ops.spline', 'ops.sym_eig', 'solver.fixed',\n"
+        "          'solver.adams', 'solver.vcabm', 'solver.implicit',\n"
+        "          'solver.adjoint'):\n"
         "    assert 'ionflux_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
@@ -66,7 +68,8 @@ def test_port_imports_neither_jax_nor_ionflux():
         "import time_forward_torch, probe_ring_pass_torch, time_probe_torch\n"
         "import probe_cluster_launch_torch, probe_validation_chain_torch\n"
         "import train_d1_torch, train_d2_torch, common_torch\n"
-        "import probe_chain_vs_plain_torch\n"
+        "import probe_chain_vs_plain_torch, train_neural_ode_torch\n"
+        "import probe_solve_capture_torch, time_neural_ode_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ionflux'))\n"
         "assert not bad, bad\n"
@@ -1093,3 +1096,123 @@ def test_cmaes_onchip_replays_its_chunks_on_card(card):
                        max_iterations=13, device=card)
     assert cut.iterations == 13 and cut.hit_max_iterations
     assert [h[0] for h in cut.history] == [0, 8, 13]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["adams", "vcabm", "rosenbrock"])
+@pytest.mark.parametrize("kind", ["hh", "markov", "nnf"])
+def test_method_graph_replay_equals_stepwise_on_card(card, method, kind):
+    """Each adaptive method's blocked loop on the card (first block eager,
+    then its captured block replayed; a second solve replays only) equals
+    its per-step loop bit for bit, and every block ran as a graph of its
+    own key."""
+    from ionflux_torch.eval import _model_rhs, default_y0
+    from ionflux_torch.solver import adams, dopri5, implicit, vcabm
+
+    solve, stepwise = {
+        "adams": (adams.odeint_adams, adams._adams_stepwise),
+        "vcabm": (vcabm.odeint_vcabm, vcabm._vcabm_stepwise),
+        "rosenbrock": (implicit.odeint_rosenbrock,
+                       implicit._rosenbrock_stepwise)}[method]
+    proto = TP.activation_protocol(20.0, 1.0, device=card)
+    ts = torch.linspace(0.0, 8000.0, 801, device=card)
+    params = {"hh": TR.HH_B06, "markov": TR.MARKOV_B06,
+              "nnf": TN.NNfParams(TN.MLP(_net(3, device=card)),
+                                  TR.HH_B06)}[kind]
+    fn, y0 = _model_rhs(kind), default_y0(kind, device=card)
+    kw = dict(rtol=1e-5, atol=1e-7, return_stats=True)
+    want = stepwise(fn, y0, ts, (params, proto), **kw)
+    for _ in range(2):
+        got = solve(fn, y0, ts, (params, proto), **kw)
+        assert got[1] == want[1] and got[1].ok
+        assert torch.equal(got[0], want[0])
+    assert any(k[0] == dopri5._fn_key(fn) and k[3][0] == method
+               for k in dopri5._GRAPHS)
+
+
+@pytest.mark.cuda
+def test_adjoint_backward_captures_once_across_intervals_on_card(card):
+    """The adjoint's backward on the card: the fixed-step branch (a net
+    past RK4_ABOVE parameters) captures its interval once and replays it
+    for every later interval; a second backward replays only and gives
+    the same gradients bit for bit; both against the CPU's within the
+    adjoint tests' bound.  The adaptive branch (HH parameters) runs its
+    backward solves on one captured block."""
+    from ionflux_torch.models import nnf_rhs
+    from ionflux_torch.solver import adjoint as TAD
+    from ionflux_torch.solver import dopri5
+
+    def rhs(t, y, args):
+        return nnf_rhs(TN.NNfParams(args[0], TR.HH_B06), t, y,
+                       TP.voltage(args[1], t))
+
+    def grads(device):
+        net = [(w.requires_grad_(True), b.requires_grad_(True))
+               for w, b in _net(4, sizes=(2, 100, 100, 1), device=device)]
+        proto = TP.activation_protocol(20.0, 1.0, device=device)
+        ts = torch.linspace(0.0, 500.0, 11, device=device)
+        ys = TAD.odeint_adjoint(rhs, torch.tensor([0.1, 0.9], device=device),
+                                ts, (net, proto), 1e-6, 1e-8)
+        torch.mean(ys[:, 0] ** 2).backward()
+        return [x.grad.cpu() for pair in net for x in pair]
+
+    n0 = len(TAD._INTERVAL_GRAPHS)
+    first = grads(card)
+    assert len(TAD._INTERVAL_GRAPHS) == n0 + 1
+    second = grads(card)
+    assert len(TAD._INTERVAL_GRAPHS) == n0 + 1
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    ref = grads("cpu")
+    a = torch.cat([g.reshape(-1) for g in first]).double()
+    b = torch.cat([g.reshape(-1) for g in ref]).double()
+    assert float((a - b).norm() / b.norm()) < 1e-3
+
+    def hh_grad(device):
+        p = torch.tensor([float(x) for x in TR.HH_B06], device=device,
+                         requires_grad=True)
+
+        def f(t, y, args):
+            q, pr = args
+            v = TP.voltage(pr, t)
+            k1, k2 = q[0] * torch.exp(q[1] * v), q[2] * torch.exp(-q[3] * v)
+            k3, k4 = q[4] * torch.exp(q[5] * v), q[6] * torch.exp(-q[7] * v)
+            return torch.stack([k1 * (1 - y[0]) - k2 * y[0],
+                                -k3 * y[1] + k4 * (1 - y[1])])
+
+        proto = TP.activation_protocol(0.0, 1.0, device=device)
+        ts = torch.linspace(0.0, 2000.0, 21, device=device)
+        ys = TAD.odeint_adjoint(f, torch.tensor([0.0, 1.0], device=device),
+                                ts, (p, proto), 1e-8, 1e-10)
+        torch.mean(ys[:, 0] ** 2).backward()
+        return p.grad.cpu().double()
+
+    g_card = hh_grad(card)
+    assert sum(k[0] == dopri5._fn_key(TAD._aug_rhs)
+               for k in dopri5._GRAPHS) >= 1
+    g_cpu = hh_grad("cpu")
+    assert float((g_card - g_cpu).norm() / g_cpu.norm()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_neural_ode_step_graph_replays_the_eager_step_on_card(card):
+    """The neural-ODE script's RK4-mode updates on the card: with the
+    interval's two captured graphs replayed, three updates give the eager
+    updates' losses and net bit for bit."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_neural_ode_torch as T
+
+    proto = TP.activation_protocol(20.0, 1.0, device=card)
+    ts = torch.linspace(0.0, 300.0, 31, device=card)
+    data = torch.linspace(0.0, 1.0, 31, device=card)
+    runs = {}
+    for graph in (False, True):
+        tr = T.Trainer(_net(6, sizes=(2, 16, 16, 1), device=card), proto,
+                       ts, torch.tensor([0.0, 1.0], device=card), data,
+                       adjoint=False, graph=graph)
+        runs[graph] = ([tr.step() for _ in range(3)], tr)
+    assert runs[True][1].graphs is not None and runs[False][1].graphs is None
+    for a, b in zip(runs[False][0], runs[True][0]):
+        assert torch.equal(a, b)
+    for a, b in zip(runs[False][1].flat, runs[True][1].flat):
+        assert torch.equal(a, b)

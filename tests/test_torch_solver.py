@@ -166,8 +166,19 @@ def test_simulate_and_family_match_reference(kind):
     assert tuple(ys.shape) == (161, 2)
     assert torch.equal(TE.default_y0(kind, device="cpu"),
                        torch.tensor([0.0, 1.0]))
-    with pytest.raises(NotImplementedError, match="dopri5"):
-        TE.simulate(kind, tp, pt[1], tst, TR.SYNTHETIC, method="adams")
+    # method="adams" (ABM4): the gates against JAX's on the same route,
+    # 1e-2 on the grid (its points fall on the step edges), 1e-4 at times
+    # >= 50 ms from an edge; the current is the gates' current
+    i_a = TE.simulate(kind, tp, pt[1], tst, TR.SYNTHETIC, method="adams")
+    ys_a = TE.solve_states(kind, tp, pt[1], tst, method="adams")
+    assert torch.equal(i_a, TE._observe(kind, ys_a, TP.voltage(pt[1], tst),
+                                        TR.SYNTHETIC))
+    assert_close(ys_a, JE.solve_states(kind, jp, pj[1], tsj,
+                                       method="adams"), atol=1e-2)
+    tfj, tft = ts_between_edges()
+    assert_close(TE.solve_states(kind, tp, pt[1], tft, method="adams"),
+                 JE.solve_states(kind, jp, pj[1], tfj, method="adams"),
+                 atol=1e-4)
     with pytest.raises(ValueError, match="backend"):
         TE.simulate_family(kind, tp, pt, tst, TR.SYNTHETIC, backend="tpu")
 
@@ -181,3 +192,30 @@ def test_entry_runs_on_cpu_when_asked():
     cur = fn(*args)
     assert tuple(cur.shape) == (1601,) and bool(torch.isfinite(cur).all())
     assert np.abs(np_(cur)).max() > 0.0
+
+
+def test_method_flag_sets_the_default_method():
+    """scripts/common_torch.py: --method vcabm --device cpu sets
+    eval.DEFAULT_METHOD (argument parsing alone; no study runs), which
+    solve_states then takes."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import common_torch
+
+    try:
+        args = common_torch.parse(common_torch.study_parser("test"),
+                                  ["--method", "vcabm", "--device", "cpu"])
+        assert args.method == "vcabm" and args.device == "cpu"
+        assert TE.DEFAULT_METHOD == "vcabm"
+        proto = TP.activation_protocol(20.0, 1.0, device="cpu")
+        ts = torch.linspace(0.0, 2000.0, 21)
+        from ionflux_torch.solver import odeint_vcabm
+
+        assert torch.equal(TE.solve_states("hh", TR.HH_B06, proto, ts),
+                           odeint_vcabm(T_HH, TE.default_y0("hh", device="cpu"),
+                                        ts, (TR.HH_B06, proto)))
+    finally:
+        TE.DEFAULT_METHOD = "dopri5"
