@@ -171,6 +171,28 @@ torch ops, replayed from CUDA graphs):
       through RK4 (n_sub 32; relative error below 1e-3); JAX's
       out/neural-ode/model.npz through the RK4 solve to 1,500 ms, card
       against CPU (1e-4 of the largest current);
+The s-studies and the d-study replay (no kernel; the device-paced
+``odeint`` and the chained solve), on a stand-in reference checkout
+(``standin_reference``: test-protocols/ap2hz.csv is the recorded APs
+waveform's first 3,000 ms, written before ``studies`` is imported):
+  (v) ``studies.predict_study`` of the committed out/s1 and out/s2 models
+      on all 26 prediction rows, every row but AP2Hz against the JAX
+      package's out/<s>/log2 (1e-2 relative; a TPU's numbers), seconds per
+      row; the 3 ms and 10 ms activation-time-constant rows of S1 by one
+      ``simulate_cases`` on the card and on the CPU (1e-4 of the range 50
+      ms or more from a step edge, 1e-3 anywhere);
+      ``run_study_validated(S1, metric=s_rollout_maes)`` on S1's full
+      surface, cut in depth to 1 seed x 800 updates (2 checkpoints; full
+      MLP, full 1,000-update pretrain): the surface's seconds, ms per
+      replayed Adam update, seconds per ``s_rollout_maes`` call, the kept
+      checkpoint; ``run_study(S2)`` at 200 updates on the cached surface,
+      with the kept S1 net's "Target Loss", ending in its AP2Hz line;
+  (w) ``scripts/table_1_torch.py``'s ``main`` on out/d1, out/d2 and
+      HH_D0_FIT, cut to the Sinusoidal and APs columns (8 solves; the
+      chained Pr3 / Pr5 / Pr4 columns took ~65 s more) and timed by
+      ``utils.timing.StageTimer`` on the card, its MAEs against
+      out/table-1/table-1.txt (JAX on a TPU with the reference's noise:
+      1e-2 relative, a rough check), and its ``--cached`` rerun equal;
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
@@ -205,6 +227,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2325,6 +2348,269 @@ def neural_ode_path(dev) -> None:
         raise RuntimeError(f"(u) carried net, card vs CPU RK4 {d}")
 
 
+# (v): the s-studies on the card
+STANDIN_MS = 3000.0   # the stand-in ap2hz.csv: the recorded APs' first 3 s
+LOG2_RTOL = 1e-2      # --pred MAEs vs out/<s>/log2, which JAX wrote on a TPU
+                      # (f32 dots as one bf16 pass): a rough check (the
+                      # port's CPU and card runs land within 1.4e-3)
+CPU_ROW_TOL = 1e-4    # two short rows, card vs CPU, of the current's range,
+                      # 50 ms or more from a step edge ...
+CPU_ROW_EDGE_TOL = 1e-3   # ... and anywhere: at an edge the two adaptive
+                          # f32 solves straddle it differently ((q)'s rule)
+CPU_ROWS = ("3.0ms", "10.0ms")   # the activation-time-constant rows
+V_SEEDS, V_ITERS, V_EVERY = 1, 800, 400   # S1's recipe, cut from 4 x 4,000
+V_S2_ITERS = 200      # run_study(S2), cut from 4,000
+# (w): the d-study replay
+TABLE_RTOL = 1e-2     # table-1 MAEs vs out/table-1/table-1.txt (JAX on a
+                      # TPU, the reference's yc-*.pt noise): a rough check
+                      # (all five columns landed within 2.6e-3)
+# the depth cut of (w): the two single-recording prediction columns; Pr3,
+# Pr5 and Pr4 (the chained solve of (p) and (q)) took ~65 s more
+TABLE_COLUMNS = ("Sinusoidal", "APs")
+
+
+@contextlib.contextmanager
+def tee_stdout(lines: list):
+    """Print as usual and keep every line printed in ``lines``."""
+    import io
+
+    buf = io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            buf.write(text)
+            return len(text)
+
+        def flush(self):
+            sys.__stdout__.flush()
+
+    with contextlib.redirect_stdout(Tee()):
+        try:
+            yield
+        finally:
+            lines.extend(buf.getvalue().splitlines())
+
+
+def loss_lines(lines) -> list[tuple[str, float]]:
+    """(label, MAE) of the printed "label | Total Loss x" lines, in order."""
+    return [(ln.split("|")[0].strip(), float(ln.split()[-1]))
+            for ln in lines if "| Total Loss" in ln]
+
+
+def write_ap2hz_standin(refdir: str) -> str:
+    """A stand-in test-protocols/ap2hz.csv under refdir: the recorded APs
+    waveform's first 3,000 ms at 0.1 ms (30,001 rows of time [s], voltage
+    [mV] under a header).  Written before the port's studies module is
+    imported, which reads IONFLUX_REFERENCE then."""
+    from ionflux_torch import protorec
+
+    if "ionflux_torch.studies" in sys.modules:
+        raise RuntimeError("write the stand-in before importing studies")
+    v, dt = protorec.load_voltage("aps-cell5")
+    n = int(round(STANDIN_MS / dt)) + 1
+    path = os.path.join(refdir, "test-protocols", "ap2hz.csv")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rows = np.stack([np.arange(n) * dt * 1e-3, v[:n]], axis=-1)
+    np.savetxt(path, rows, delimiter=",", header="time[s],voltage[mV]",
+               comments="", fmt="%.7g")
+    return path
+
+
+def standin_reference() -> str:
+    """A temporary stand-in reference checkout holding (v)'s ap2hz.csv,
+    named by IONFLUX_REFERENCE; returns its directory."""
+    import tempfile
+
+    refdir = tempfile.mkdtemp(prefix="ionflux-ref-")
+    write_ap2hz_standin(refdir)
+    os.environ["IONFLUX_REFERENCE"] = refdir
+    return refdir
+
+
+def s_study_path(dev) -> None:
+    """(v) the s-studies on the card: ``predict_study`` of the committed S1
+    and S2 checkpoints against out/<s>/log2 and two of its rows against the
+    CPU, ``run_study_validated(S1, metric=s_rollout_maes)`` on S1's full
+    surface (cut in depth), and ``run_study(S2)`` on the cached surface."""
+    import tempfile
+
+    from ionflux_torch import eval as E
+    from ionflux_torch import studies as S
+    from ionflux_torch.fit import train as FT
+    from ionflux_torch.models.registry import SYNTHETIC
+
+    log(f"(v) AP2Hz is a STAND-IN: {S.REFDIR}/test-protocols/ap2hz.csv "
+        f"holds the recorded APs' first {STANDIN_MS:.0f} ms, not the "
+        f"reference's file; its rows are not the paper's numbers")
+    t_phase = time.perf_counter()
+    # ---- predict_study on the committed checkpoints ---------------------
+    kept = {}
+    for spec in (S.S1, S.S2):
+        params = S.load_study_params(spec, os.path.join(ROOT, "out",
+                                                        spec.name), dev)
+        kept[spec.name] = params
+        lines, calls = [], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with tee_stdout(lines), timed_calls(E, "simulate", calls):
+            S.predict_study(spec, params)
+        secs = time.perf_counter() - t
+        got = loss_lines(lines)
+        with open(os.path.join(ROOT, "out", spec.name, "log2")) as fh:
+            want = loss_lines(fh.read().splitlines())
+        if [g[0] for g in got[1:]] != [w[0] for w in want[1:]] \
+                or len(got) != 26:
+            raise RuntimeError(f"(v) {spec.name}: rows {got} against "
+                               f"log2's {want}")
+        n_rows = len(got)
+        row_s = [calls[k][0] + calls[n_rows + k][0] for k in range(n_rows)]
+        rel = [abs(g[1] - w[1]) / w[1] for g, w in zip(got[1:], want[1:])]
+        log(f"(v) predict_study({spec.name}): {n_rows} rows in {secs:.1f} "
+            f"s (truth {sum(c[0] for c in calls[:n_rows]):.1f} s, model "
+            f"{sum(c[0] for c in calls[n_rows:]):.1f} s); s per row "
+            f"{[round(x, 2) for x in row_s]}")
+        log(f"(v) {spec.name} MAEs vs out/{spec.name}/log2 (all rows but "
+            f"AP2Hz; JAX on a TPU): largest relative difference "
+            f"{max(rel):.3e} at {got[1 + int(np.argmax(rel))][0]}; "
+            f"AP2Hz (stand-in) {got[0][1]:.6f}")
+        if not (all(np.isfinite(g[1]) for g in got)
+                and max(rel) <= LOG2_RTOL):
+            raise RuntimeError(f"(v) {spec.name}: {got} against {want} "
+                               f"(rtol {LOG2_RTOL})")
+
+    # two short rows (the 3 ms and 10 ms activation-time-constant steps),
+    # one simulate_cases call on the card and the same on the CPU
+    cpu = torch.device("cpu")
+    pick, rows_c = [], None
+    for d in (dev, cpu):
+        rows_d = [r for r in S.prediction_cases(d)
+                  if r[0].strip() in CPU_ROWS]
+        p_d = S.load_study_params(S.S1, os.path.join(ROOT, "out", "s1"), d)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pick.append(E.simulate_cases(
+            "nnf", p_d, [(r[2], r[3]) for r in rows_d], SYNTHETIC,
+            **S._PRED_KW))
+        torch.cuda.synchronize()
+        log(f"(v) S1 rows {CPU_ROWS} by simulate_cases on {d.type}: "
+            f"{time.perf_counter() - t:.1f} s")
+        rows_c = rows_d
+    for name, y_k, y_c, row in zip(CPU_ROWS, *pick, rows_c):
+        yc, dy = y_c.double(), (y_k.double().cpu() - y_c.double()).abs()
+        rng = float(yc.max() - yc.min())
+        pr, ts = row[2], row[3].double()
+        vk = pr.v.double()
+        edges = float(pr.t0) + float(pr.dt) * torch.nonzero(
+            vk[1:] != vk[:-1]).double()
+        far = (ts[:, None] - edges[None, :, 0]).abs().min(dim=1).values >= 50
+        err_all = float(dy.max()) / rng
+        err_far = float(dy[far].max()) / rng
+        log(f"(v) S1 row {name}: card vs CPU max |dI| {err_far:.3e} of the "
+            f"range at {int(far.sum())} outputs 50 ms or more from an edge "
+            f"(tolerance {CPU_ROW_TOL:g}), {err_all:.3e} anywhere "
+            f"({CPU_ROW_EDGE_TOL:g})")
+        if not (err_far <= CPU_ROW_TOL and err_all <= CPU_ROW_EDGE_TOL):
+            raise RuntimeError(f"(v) row {name}: card vs CPU {err_far:.3e}"
+                               f" / {err_all:.3e}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- run_study_validated(S1, metric=s_rollout_maes) -------------
+        out1 = os.path.join(tmp, "s1")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v, a, dadt = S.study_surface(S.S1, out1, device=dev)
+        secs_surface = time.perf_counter() - t
+        chunks, metric_calls, lines = [], [], []
+        with tee_stdout(lines), timed_calls(S, "fit_chunk", chunks), \
+                timed_calls(S, "s_rollout_maes", metric_calls):
+            t = time.perf_counter()
+            params1 = S.run_study_validated(
+                S.S1, out1, n_seeds=V_SEEDS, iters=V_ITERS,
+                val_every=V_EVERY, cached=True, metric=S.s_rollout_maes,
+                device=dev)
+            secs_run = time.perf_counter() - t
+        later = chunks[1:]
+        ms_it = 1e3 * sum(c[0] for c in later) / max(
+            1, sum(c[2][2].shape[0] for c in later))
+        scores = [c[2]["score"] for c in metric_calls]
+        kept_line = [ln for ln in lines if ln.startswith("kept")]
+        log(f"(v) study_surface(S1): {v.size} points in {secs_surface:.1f} "
+            f"s; run_study_validated(S1, n_seeds={V_SEEDS}, "
+            f"iters={V_ITERS}, metric=s_rollout_maes): {secs_run:.1f} s; "
+            f"{ms_it:.3f} ms per replayed Adam update (the first chunk, "
+            f"with the warm-up and the capture, {chunks[0][0]:.2f} s); "
+            f"s_rollout_maes {[round(c[0], 1) for c in metric_calls]} s a "
+            f"call (the first also solves the ground truth); scores "
+            f"{[round(x, 5) for x in scores]}; {kept_line}")
+        if not (len(metric_calls) == V_SEEDS * V_ITERS // V_EVERY
+                and np.isfinite(min(scores)) and kept_line
+                and os.path.exists(os.path.join(out1, "model.npz"))):
+            raise RuntimeError(f"(v) run_study_validated(S1): {scores}")
+
+        # ---- run_study(S2) on the cached surface ---------------------------
+        out2 = os.path.join(tmp, "s2")
+        os.makedirs(out2)
+        shutil.copy(os.path.join(out1, "surface.npz"), out2)
+        lines = []
+        t = time.perf_counter()
+        with tee_stdout(lines):
+            S.run_study(S.S2, out2, iters=V_S2_ITERS, cached=True,
+                        target_net=params1.net, device=dev)
+        secs_s2 = time.perf_counter() - t
+        ap = loss_lines(lines)
+        log(f"(v) run_study(S2, iters={V_S2_ITERS}): {secs_s2:.1f} s; last "
+            f"line {lines[-1]!r}")
+        if not (ap and ap[-1][0] == "Pretraining" and np.isfinite(ap[-1][1])
+                and any(ln.startswith("Target Loss") for ln in lines)):
+            raise RuntimeError(f"(v) run_study(S2): {lines[-3:]}")
+    log(f"(v) s-study phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def replay_path(dev) -> None:
+    """(w) the d-study replay: ``scripts/table_1_torch.py`` on out/d1,
+    out/d2 and HH_D0_FIT, its MAEs against out/table-1/table-1.txt, one
+    stage timed by ``utils.timing.StageTimer`` on the card."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    try:
+        import table_1_torch as T1
+    finally:
+        sys.path.pop(0)
+    from ionflux_torch.utils.timing import StageTimer
+
+    with open(os.path.join(ROOT, "out", "table-1", "table-1.txt")) as fh:
+        want = {ln.split("&")[0].strip(): [float(x.strip(" \\\n"))
+                                           for x in ln.split("&")[1:]]
+                for ln in fh if ln.count("&") == 5 and "Pr3" not in ln}
+    timer = StageTimer()
+    cut = [c for c in T1.COLUMNS if c[0] in TABLE_COLUMNS]
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(T1, "COLUMNS", cut):
+        with timer.stage("table_1_torch.main", sync=dev):
+            table = T1.main(["--device", str(dev), "--outdir", tmp])
+        with timer.stage("table_1_torch.main --cached", sync=dev):
+            again = T1.main(["--cached", "--device", str(dev), "--outdir",
+                             tmp])
+    log("(w) StageTimer (synchronised with the card):\n" + timer.report())
+    k_cols = [k for k, c in enumerate(T1.COLUMNS) if c[0] in TABLE_COLUMNS]
+    worst = 0.0
+    log(f"(w) columns {TABLE_COLUMNS} (cut from {[c[0] for c in T1.COLUMNS]})")
+    for label in ("Original", "NN-f", "NN-d"):
+        got = [table[T1.COLUMNS[k][0]][label] for k in k_cols]
+        ref = [want[label][k] for k in k_cols]
+        rel = [abs(g - w) / w for g, w in zip(got, ref)]
+        worst = max(worst, max(rel))
+        log(f"(w) {label:8s} {' '.join(f'{x:.3f}' for x in got)}  "
+            f"(out/table-1/table-1.txt {' '.join(f'{x:.3f}' for x in ref)};"
+            f" largest relative difference {max(rel):.3e})")
+    if not (worst <= TABLE_RTOL and again == table):
+        raise RuntimeError(f"(w) table 1: {table} against {want} (rtol "
+                           f"{TABLE_RTOL}), cached rerun equal: "
+                           f"{again == table}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2338,6 +2624,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
+    refdir = standin_reference()   # before studies is imported
 
     # ---- (a) device, build -------------------------------------------------
     card = device_line()
@@ -2375,6 +2662,11 @@ def main() -> int:
     neural_ode_path(dev)
     log(f"neural-ODE training (u) done at {time.perf_counter() - t_start:.0f}"
         f" s")
+    s_study_path(dev)
+    log(f"s-studies (v) done at {time.perf_counter() - t_start:.0f} s")
+    replay_path(dev)
+    log(f"d-study replay (w) done at {time.perf_counter() - t_start:.0f} s")
+    shutil.rmtree(refdir)
 
     # ---- (e) results -------------------------------------------------------
     print(json.dumps({"kernels": rows}), flush=True)

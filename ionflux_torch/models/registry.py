@@ -107,6 +107,14 @@ HH_D0_INIT = _hh(
     MARKOV_B06.p5, MARKOV_B06.p6, MARKOV_B06.p7, MARKOV_B06.p8,
 )
 
+# d0's CMA-ES fitted a-gate (out/d0/model-parameters.txt), the "Original"
+# model of table 1 and figures 1-3.
+HH_D0_FIT = _hh(
+    5.694588454735844622e-05, 1.172955815858964107e-01,
+    3.522672347205991382e-05, 4.972513487995382231e-02,
+    MARKOV_B06.p5, MARKOV_B06.p6, MARKOV_B06.p7, MARKOV_B06.p8,
+)
+
 # d-study pretrain surface: the Markov a1/b1 rates as HH p1-p4
 # (train-d1.py:821-823).
 HH_D_PRETRAIN = _hh(

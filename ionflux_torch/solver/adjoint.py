@@ -14,6 +14,16 @@ kept.  theta are the tensors of ``args`` that require grad (an nn.Module's
 parameters included); the gradient with respect to ``ts`` is
 dL/dt_i = g_i . f(t_i, y_i), and -a_y(t0) . f(t0, y0) at t0.
 
+The backward branch follows JAX's count of the augmented state: 2 S plus
+every floating value in ``args`` (each tensor's numel, a host float one),
+whether or not it needs a gradient.  Past ``RK4_ABOVE`` the fixed-step
+branch integrates only the leaves that need a gradient: the others' rows
+never feed back into (y, a_y), so the numbers are JAX's.  Below it the
+adaptive branch integrates every floating tensor leaf, as JAX does, since
+the starting step's RMS (``dopri5._initial_step``) counts and weighs them
+all; host floats and frozen module tensors ride as zero rows, so the
+count, and with it every RMS's denominator, stays JAX's.
+
 The augmented right-hand side (``_aug_rhs``) takes the interval's t1, the
 solve's args and the cotangent's shape through its own args, never through
 a closure, so on the card one captured graph serves every interval: the
@@ -66,9 +76,9 @@ def _swap(x, sel: frozenset, pos: list, targets: dict):
 
 def _aug_rhs(tau, v, pk):
     """The augmented dynamics in reversed time tau = t1 - t.  pk = (t1,
-    args, (fn, sel, s)): v = [y (s), a_y (s), a_theta (the selected leaves,
-    flat)]."""
-    t1, args, (fn, sel, s) = pk
+    args, (fn, sel, s, pad)): v = [y (s), a_y (s), a_theta (the selected
+    leaves, flat), pad zero rows]."""
+    t1, args, (fn, sel, s, pad) = pk
     t = t1 - tau
     targets = {}
     with torch.enable_grad():
@@ -79,7 +89,32 @@ def _aug_rhs(tau, v, pk):
     parts = [-f.detach()] + [
         (torch.zeros_like(x) if g is None else g).reshape(-1)
         for x, g in zip(wrt, grads)]
+    if pad:
+        parts.append(v.new_zeros(pad))
     return torch.cat(parts)
+
+
+def _float_values(x, frozen: list) -> int:
+    """How many floating values x holds, as JAX counts a pytree's leaves:
+    each floating tensor's numel (an nn.Module's parameters and buffers
+    included) and one for each host float.  frozen gets, in
+    ``_structure``'s leaf order, whether each tensor leaf is one autograd
+    cannot differentiate in place (a module's tensor that does not require
+    grad)."""
+    if isinstance(x, torch.Tensor):
+        frozen.append(False)
+        return x.numel() if x.is_floating_point() else 0
+    if isinstance(x, nn.Module):
+        n = 0
+        for p in list(x.parameters()) + list(x.buffers()):
+            frozen.append(not p.requires_grad)
+            n += p.numel() if p.is_floating_point() else 0
+        return n
+    if isinstance(x, (tuple, list)):
+        return sum(_float_values(v, frozen) for v in x)
+    if isinstance(x, dict):
+        return sum(_float_values(x[k], frozen) for k in sorted(x))
+    return 1 if isinstance(x, float) else 0
 
 
 class _IntervalGraph:
@@ -153,29 +188,35 @@ class _Adjoint(torch.autograd.Function):
         rtol, atol, max_steps, buffer_size, seminorm = ctx.settings
         ys, ts = ctx.saved_tensors
         ts = ts.to(ys.dtype)
-        leaves = []
+        leaves, frozen = [], []
         _structure(args, leaves)
-        sel = frozenset(i for i, x in enumerate(leaves)
-                        if ctx.needs_input_grad[5 + i]
-                        and x.is_floating_point())
         s = ys.shape[-1]
-        picked = [leaves[i] for i in sorted(sel)]
-        n_aug = 2 * s + sum(x.numel() for x in picked)
+        n_aug = 2 * s + _float_values(args, frozen)   # JAX's count
+        need = frozenset(i for i, x in enumerate(leaves)
+                         if ctx.needs_input_grad[5 + i]
+                         and x.is_floating_point())
+        rk4 = n_aug > RK4_ABOVE
+        sel = need if rk4 else frozenset(
+            i for i, x in enumerate(leaves)
+            if x.is_floating_point() and not frozen[i])
+        n_sel = sum(leaves[i].numel() for i in sel)
+        pad = 0 if rk4 else n_aug - 2 * s - n_sel
         weight = None
-        if seminorm and n_aug > 2 * s:
+        if seminorm and n_aug > 2 * s and not rk4:
             weight = torch.cat([torch.ones(2 * s, dtype=ys.dtype,
                                            device=ys.device),
                                 torch.zeros(n_aug - 2 * s, dtype=ys.dtype,
                                             device=ys.device)])
         a_y = torch.zeros_like(ys[0])
-        a_args = torch.zeros(n_aug - 2 * s, dtype=ys.dtype, device=ys.device)
-        meta = (fn, sel, s)
+        a_args = torch.zeros(n_sel, dtype=ys.dtype, device=ys.device)
+        rows = torch.zeros(n_sel + pad, dtype=ys.dtype, device=ys.device)
+        meta = (fn, sel, s, pad)
         for i in range(ts.shape[0] - 2, -1, -1):
             t0, t1 = ts[i], ts[i + 1]
             a_y = a_y + g[i + 1]   # the output cotangent at t1
-            v = torch.cat([ys[i + 1], a_y, torch.zeros_like(a_args)])
+            v = torch.cat([ys[i + 1], a_y, rows])
             pk = (t1, args, meta)
-            if n_aug > RK4_ABOVE:
+            if rk4:
                 out = _rk4_branch(v, t1 - t0, pk)
             else:
                 grid = torch.stack([torch.zeros_like(t0), t1 - t0])
@@ -183,7 +224,7 @@ class _Adjoint(torch.autograd.Function):
                              max_steps=max_steps, buffer_size=buffer_size,
                              error_weight=weight)[-1]
             a_y = out[s:2 * s]
-            a_args = a_args + out[2 * s:]
+            a_args = a_args + out[2 * s:2 * s + n_sel]
         a_y0 = a_y + g[0]
 
         dts = None
@@ -194,8 +235,10 @@ class _Adjoint(torch.autograd.Function):
             dts[0] = -torch.dot(a_y0, f_at[0])
         grads = [None] * len(leaves)
         off = 0
-        for i, x in zip(sorted(sel), picked):
-            grads[i] = a_args[off:off + x.numel()].reshape(x.shape)
+        for i in sorted(sel):
+            x = leaves[i]
+            if i in need:
+                grads[i] = a_args[off:off + x.numel()].reshape(x.shape)
             off += x.numel()
         return (None, None, None, a_y0, dts, *grads)
 

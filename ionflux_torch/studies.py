@@ -1,23 +1,29 @@
-"""Synthetic studies and the checkpoint-validated training recipe
-(counterpart of ``ionflux/studies.py``, its surface-training main path):
+"""Synthetic studies, their training recipes and the prediction replay
+(counterpart of ``ionflux/studies.py``):
 
   s1: NN-f on HH ground truth;   s2: NN-d on HH ground truth;
   d1: NN-f on 3-state Markov ground truth;
   d2: NN-d on Markov ground truth (smoothing window 151, spline s = 1,
       sparse 21).
 
-``run_study_validated`` trains across init seeds in ``val_every``-update
-chunks, scores every checkpoint by its rollout MAEs on the five table-1
-recordings against the study's noisy data, and keeps the best (seed,
-iteration).  On a CUDA device it scores all checkpoints at once through the
-chained popsweep kernel (``table_rollout_maes_pop`` ->
+``run_study`` trains one seed (pretrain, then the surface fit) and ends
+with the AP2Hz line; ``run_study_best_of`` keeps the best of several seeds
+by their whole-trace rollouts.  ``run_study_validated`` trains across init
+seeds in ``val_every``-update chunks, scores every checkpoint with a metric
+(the five table-1 recordings against the study's noisy data by default;
+``s_rollout_maes`` for the s-studies) and keeps the best (seed, iteration).
+On a CUDA device it scores the default metric's checkpoints all at once
+through the chained popsweep kernel (``table_rollout_maes_pop`` ->
 ``eval.population_rollout_maes``); a failure there raises, where the
-reference falls back to the per-checkpoint path.
+reference falls back to the per-checkpoint path.  ``predict_study`` is the
+drivers' ``--pred`` replay over ``prediction_cases``.
 
 Everything runs on ``device`` (the card unless the caller asks for the
-CPU) or on the device of the tensors given.  The runners that read the
-reference's ``ap2hz.csv`` (``run_study``, ``predict_study``,
-``s_rollout_maes``, ``run_study_best_of``) are not ported.
+CPU) or on the device of the tensors given.  The AP2Hz protocol and the
+other ``test-protocols/*.csv`` files are read from the reference checkout
+named by ``IONFLUX_REFERENCE`` (``REFDIR``: set from it when the module
+is imported, read when a function runs); without ``ap2hz.csv`` the
+functions that need it raise.
 """
 
 from __future__ import annotations
@@ -33,9 +39,11 @@ from ionflux_torch import protocols as P
 from ionflux_torch import protorec
 from ionflux_torch._device import resolve_device
 from ionflux_torch.data import synth_study_currents
-from ionflux_torch.eval import population_rollout_maes, solve_states_real
+from ionflux_torch.eval import (population_rollout_maes, report_mae,
+                                simulate, simulate_cases, solve_states_real)
 from ionflux_torch.fit.train import (boundary_anchors, fit_chunk,
-                                     init_opt_state, pretrain, surface_loss)
+                                     fit_surface, init_opt_state, pretrain,
+                                     surface_loss)
 from ionflux_torch.models import a_gate_rhs, nnd_init, nnf_init
 from ionflux_torch.models.nn import MLP, NNdParams, NNfParams
 from ionflux_torch.models.registry import (
@@ -54,8 +62,10 @@ from ionflux_torch.surface import (SurfaceConfig, concat_surfaces,
 from ionflux_torch.utils.ckpt import (load_pytree, save_model_bundle,
                                       save_pytree)
 
-# The reference checkout (its table-1/yc-*.pt noisy traces), where one is
-# present: named by IONFLUX_REFERENCE; without it the noisy targets are drawn
+# The reference checkout, where one is present, named by IONFLUX_REFERENCE:
+# its test-protocols/*.csv and table-1/yc-*.pt noisy traces.  Functions
+# read this global when they run; without it the noisy targets are drawn
+# and the AP2Hz pieces raise.
 REFDIR = os.environ.get("IONFLUX_REFERENCE")
 
 T1 = np.linspace(0.0, 8000.0, 80001)
@@ -154,6 +164,166 @@ def load_study_params(spec: SyntheticStudy, outdir: str, device=None):
 
 def _net_device(params) -> torch.device:
     return params.net.layers[0][0].device
+
+
+def _ap2hz(device) -> P.Protocol:
+    """The reference's AP2Hz protocol, ``REFDIR/test-protocols/ap2hz.csv``
+    (time in s, voltage in mV)."""
+    path = os.path.join(REFDIR or "", "test-protocols", "ap2hz.csv")
+    if not REFDIR or not os.path.exists(path):
+        raise FileNotFoundError(
+            "test-protocols/ap2hz.csv is needed: set IONFLUX_REFERENCE to "
+            f"a reference checkout that holds it (IONFLUX_REFERENCE={REFDIR!r})")
+    return P.load_csv(path, device=device)
+
+
+def _surface_xy(spec: SyntheticStudy, v, a, dadt, device):
+    """The training points (0 < a < 1) as x = (V / 100, a), y = da/dt, and
+    NN-d's residual (the analytic a-gate), on device."""
+    keep = (a > 0) & (a < 1)
+    x = torch.as_tensor(np.stack([v[keep] / 100.0, a[keep]], axis=-1),
+                        dtype=torch.float32, device=device)
+    y = torch.as_tensor(dadt[keep], dtype=torch.float32, device=device)
+    residual = None
+    if spec.model_kind == "nnd":
+        residual = a_gate_rhs(spec.base_hh, x[:, 1], x[:, 0] * 100.0)
+    return x, y, residual
+
+
+def _anchors(spec: SyntheticStudy, device):
+    if spec.anchor_weight <= 0.0:
+        return None
+    # NN-d nets anchor their residual to 0 (fall back to the analytic part);
+    # NN-f nets to the pretrain / analytic a-gate surface
+    return boundary_anchors(
+        None if spec.model_kind == "nnd" else (spec.pretrain_hh or spec.rgate),
+        weight=spec.anchor_weight, device=device)
+
+
+def _rates3d(spec: SyntheticStudy, outdir: str, v, a, dadt, net) -> None:
+    """The reference's --debug plot: the (V, a, da/dt) surface with the
+    learned one, ``rates3d-000.png``."""
+    from ionflux_torch.figures import surface_scatter_3d
+
+    surface_scatter_3d(
+        os.path.join(outdir, "rates3d-000.png"), v, a, dadt, net=net,
+        nnd_base=spec.base_hh if spec.model_kind == "nnd" else None)
+    print(f"wrote {outdir}/rates3d-000.png")
+
+
+def run_study(spec: SyntheticStudy, outdir: str, iters: int | None = None,
+              cached: bool = False, target_net=None, debug: bool = False,
+              device=None):
+    """One seed's training: the surface, the pretrain stage (where the spec
+    has one), Adam on the surface (NN-d on the residual), model.npz and
+    model-entire.npz, then the AP2Hz line against the ground truth.
+    target_net: an s1-trained net whose loss on this surface is printed as
+    "Target Loss".  Returns the trained params."""
+    device = resolve_device(device)
+    v, a, dadt = study_surface(spec, outdir, cached, device)
+    x, y, residual = _surface_xy(spec, v, a, dadt, device)
+    net = init_params(spec, device=device).net
+    if spec.pretrain_hh is not None:
+        res = pretrain(net, spec.pretrain_hh, kind="s",
+                       iters=spec.pretrain_iters)
+        net = res.params
+        print(f"pretrain done | final loss {float(res.losses[-1]):.6f}")
+    if target_net is not None:
+        print("Target Loss", float(surface_loss(target_net, x, y)))
+    n_iters = iters if iters is not None else spec.iters
+    res = fit_surface(net, x, y, residual, _anchors(spec, device),
+                      iters=n_iters, lr=1e-3, step_size=spec.step_size,
+                      gamma=0.9)
+    net = res.params
+    print(f"train done | iters {n_iters} | "
+          f"final loss {float(res.losses[-1]):.6f}")
+    params = wrap_net(spec, net)
+    save_pytree(os.path.join(outdir, "model.npz"), params)
+    save_model_bundle(os.path.join(outdir, "model-entire.npz"), params, spec)
+    if debug:
+        _rates3d(spec, outdir, v, a, dadt, net)
+    ap2hz = _ap2hz(device)
+    ts = torch.as_tensor(PRED_T, dtype=torch.float32, device=device)
+    truth = simulate(spec.gt_kind, spec.gt, ap2hz, ts, SYNTHETIC)
+    pred = simulate(spec.model_kind, params, ap2hz, ts, SYNTHETIC)
+    report_mae("Pretraining", pred, truth)
+    return params
+
+
+def prediction_cases(device=None) -> list:
+    """Every --pred protocol as (label, header, proto, ts) rows: AP2Hz, the
+    APs, sinewave and staircase protocols (``REFDIR/test-protocols/*.csv``,
+    else the recorded APs and sinewave waveforms and the parametric
+    staircase), then the activation, deactivation and activation-time-
+    constant families at 1 ms knots."""
+    device = resolve_device(device)
+
+    def grid(ts):
+        return torch.as_tensor(ts, dtype=torch.float32, device=device)
+
+    rows = [("AP 2Hz prediction", None, _ap2hz(device), grid(PRED_T))]
+    for name, fname, ts in [
+        ("APs prediction", "aps.csv", np.linspace(0.0, 8000.0, 4001)),
+        ("Sinewave prediction", "sinewave.csv",
+         np.linspace(0.0, 8000.0, 4001)),
+        ("Staircase prediction", "staircase.csv",
+         np.linspace(0.0, 15000.0, 7501)),
+    ]:
+        path = os.path.join(REFDIR or "", "test-protocols", fname)
+        if REFDIR and os.path.exists(path):
+            rows.append((name, None, P.load_csv(path, device=device),
+                         grid(ts)))
+        elif fname == "sinewave.csv":
+            rows.append((name, None,
+                         protorec.protocol("sinewave-cell5", device=device),
+                         grid(ts)))
+        elif fname == "aps.csv":
+            rows.append((f"{name} (ap-cell-5 waveform)", None,
+                         protorec.protocol("aps-cell5", device=device),
+                         grid(ts)))
+        else:
+            rows.append((name, None, P.staircase_protocol(device=device),
+                         grid(ts)))
+    fams = [
+        ("Activation prediction:", P.activation_family(1.0, device),
+         np.linspace(0.0, 8000.0, 8001),
+         [f"{v:.1f}mV" for v in P.ACTIVATION_STEPS_MV]),
+        ("Deactivation prediction:", P.deactivation_family(1.0, device),
+         np.linspace(0.0, 10000.0, 10001),
+         [f"{v:.1f}mV" for v in P.DEACTIVATION_STEPS_MV]),
+        ("Activation time constant at 40mV prediction:",
+         P.atau_family(1.0, device), np.linspace(0.0, 5000.0, 5001),
+         [f"{d:.1f}ms" for d in P.ATAU_DURATIONS_MS]),
+    ]
+    for header, protos, ts, labels in fams:
+        for k, (pr, lab) in enumerate(zip(protos, labels)):
+            rows.append((f"    {lab}", header if k == 0 else None, pr,
+                         grid(ts)))
+    return rows
+
+
+# the prediction solves' budget: the 15 s staircase's accepted steps
+# exceed the default 4,096 dense-output records
+_PRED_KW = dict(max_steps=400_000, buffer_size=16384)
+
+
+def predict_study(spec: SyntheticStudy, params, device=None) -> dict:
+    """--pred replay: each prediction case's MAE against the ground truth
+    (printed as the reference's loss lines), {label: MAE}; on the device of
+    params' net unless ``device`` is given."""
+    dev = torch.device(device) if device is not None else _net_device(params)
+    rows = prediction_cases(dev)
+    cases = [(proto, ts) for _, _, proto, ts in rows]
+    truths = simulate_cases(spec.gt_kind, spec.gt, cases, SYNTHETIC,
+                            **_PRED_KW)
+    preds = simulate_cases(spec.model_kind, params, cases, SYNTHETIC,
+                           **_PRED_KW)
+    out = {}
+    for (label, header, _, _), t_, p_ in zip(rows, truths, preds):
+        if header:
+            print(header)
+        out[label.strip()] = report_mae(label, p_, t_)
+    return out
 
 
 # Ground-truth and noisy target traces by _gt_key
@@ -290,6 +460,52 @@ def table_rollout_maes_pop(spec: SyntheticStudy, params_list,
     return out
 
 
+def s_rollout_maes(spec: SyntheticStudy, params) -> dict:
+    """Clean-ground-truth rollout MAEs on the s-study prediction protocols
+    (the rows of s1/log2, s2/log2): AP2Hz, sinewave, staircase and the
+    activation / deactivation family means, on the device of params' net.
+    A non-finite score makes every entry inf."""
+    dev = _net_device(params)
+
+    def grid(t_end, n):
+        return torch.linspace(0.0, t_end, n, dtype=torch.float32, device=dev)
+
+    rows = [("ap2hz", _ap2hz(dev),
+             torch.as_tensor(PRED_T, dtype=torch.float32, device=dev)),
+            ("sin", protorec.protocol("sinewave-cell5", device=dev),
+             grid(8000.0, 4001)),
+            ("stair", P.staircase_protocol(device=dev), grid(15000.0, 7501))]
+    out = {}
+    for label, proto, ts in rows:
+        key = _gt_key(spec, label, "s")
+        if key not in _GT_ROLLOUTS:
+            _GT_ROLLOUTS[key] = simulate(
+                spec.gt_kind, spec.gt, proto, ts, SYNTHETIC,
+                **_PRED_KW).double().cpu().numpy()
+        pred = simulate(spec.model_kind, params, proto, ts, SYNTHETIC,
+                        **_PRED_KW).double().cpu().numpy()
+        out[label] = float(np.mean(np.abs(pred - _GT_ROLLOUTS[key])))
+    fams = [("act", P.activation_family(1.0, dev), grid(8000.0, 2001)),
+            ("deact", P.deactivation_family(1.0, dev), grid(10000.0, 2001))]
+    for label, protos, ts in fams:
+        maes = []
+        for k, pr in enumerate(protos):
+            key = _gt_key(spec, label, k, "s")
+            if key not in _GT_ROLLOUTS:
+                _GT_ROLLOUTS[key] = simulate(
+                    spec.gt_kind, spec.gt, pr, ts,
+                    SYNTHETIC).double().cpu().numpy()
+            pred = simulate(spec.model_kind, params, pr, ts,
+                            SYNTHETIC).double().cpu().numpy()
+            maes.append(float(np.mean(np.abs(pred - _GT_ROLLOUTS[key]))))
+        out[label] = float(np.mean(maes))
+    score = sum(out.values())
+    out["score"] = score if np.isfinite(score) else float("inf")
+    if not np.isfinite(score):
+        out = {k: float("inf") for k in out}
+    return out
+
+
 def run_study_validated(spec: SyntheticStudy, outdir: str, n_seeds: int = 6,
                         iters: int | None = None, cached: bool = False,
                         val_every: int = 400, debug: bool = False,
@@ -304,25 +520,12 @@ def run_study_validated(spec: SyntheticStudy, outdir: str, n_seeds: int = 6,
     a CUDA device) defers the scoring and runs all checkpoints through
     ``table_rollout_maes_pop`` after training.  Unlike the reference, a
     failure there raises instead of falling back to per-checkpoint
-    scoring.  ``debug`` (the surface plot) needs ``figures.py``, which is
-    not ported."""
-    if debug:
-        raise NotImplementedError(
-            "run_study_validated(debug=True) draws the surface plot of "
-            "figures.py, which is not ported (ROADMAP A12)")
+    scoring.  ``debug`` draws the surface with the kept net
+    (``rates3d-000.png``, matplotlib)."""
     device = resolve_device(device)
     v, a, dadt = study_surface(spec, outdir, cached, device)
-    keep = (a > 0) & (a < 1)
-    x = torch.as_tensor(np.stack([v[keep] / 100.0, a[keep]], axis=-1),
-                        dtype=torch.float32, device=device)
-    y = torch.as_tensor(dadt[keep], dtype=torch.float32, device=device)
-    residual = None
-    if spec.model_kind == "nnd":
-        residual = a_gate_rhs(spec.base_hh, x[:, 1], x[:, 0] * 100.0)
-    anchors = (boundary_anchors(
-        None if spec.model_kind == "nnd" else (spec.pretrain_hh or spec.rgate),
-        weight=spec.anchor_weight, device=device)
-        if spec.anchor_weight > 0 else None)
+    x, y, residual = _surface_xy(spec, v, a, dadt, device)
+    anchors = _anchors(spec, device)
     if metric is None:
         metric = table_rollout_maes
     if target_net is not None:
@@ -381,4 +584,53 @@ def run_study_validated(spec: SyntheticStudy, outdir: str, n_seeds: int = 6,
           f"(score {score:.3f})")
     save_pytree(os.path.join(outdir, "model.npz"), params)
     save_model_bundle(os.path.join(outdir, "model-entire.npz"), params, spec)
+    if debug:
+        _rates3d(spec, outdir, v, a, dadt, params.net)
+    return params
+
+
+def run_study_best_of(spec: SyntheticStudy, outdir: str, n_seeds: int = 4,
+                      iters: int | None = None, cached: bool = False,
+                      debug: bool = False, device=None):
+    """``run_study`` for each of n_seeds init seeds; keeps the model with
+    the least mean whole-trace rollout MAE against the ground truth on
+    AP2Hz and the activation / deactivation families (a non-finite
+    rollout scores inf), and writes it to outdir."""
+    device = resolve_device(device)
+    protos = ([_ap2hz(device)] + P.activation_family(device=device)
+              + P.deactivation_family(device=device))
+
+    def grid(t_end, n):
+        return torch.linspace(0.0, t_end, n, dtype=torch.float32,
+                              device=device)
+
+    ts_list = ([grid(3000.0, 1501)] + [grid(8000.0, 2001)] * 7
+               + [grid(10000.0, 2001)] * 9)
+    best = (float("inf"), None)
+    for seed in range(n_seeds):
+        params = run_study(replace(spec, init_seed=seed), outdir,
+                           iters=iters, cached=True if seed else cached,
+                           debug=debug and seed == 0, device=device)
+        maes = []
+        ok = True
+        for proto, ts in zip(protos, ts_list):
+            truth = simulate(spec.gt_kind, spec.gt, proto, ts, SYNTHETIC)
+            pred = simulate(spec.model_kind, params, proto, ts, SYNTHETIC)
+            if not bool(torch.all(torch.isfinite(pred))):
+                ok = False
+                break
+            maes.append(float(torch.mean(torch.abs(pred - truth))))
+        score = float(np.mean(maes)) if ok else float("inf")
+        print(f"seed {seed}: validation rollout MAE {score:.4f}")
+        if score < best[0]:
+            best = (score, params)
+    if best[1] is None:
+        raise RuntimeError(
+            f"run_study_best_of({spec.name}): no seed produced a finite "
+            f"whole-trace rollout across {n_seeds} seeds; refusing to save "
+            "an unusable model (try anchor_weight > 0 or more seeds)")
+    params = best[1]
+    save_pytree(os.path.join(outdir, "model.npz"), params)
+    save_model_bundle(os.path.join(outdir, "model-entire.npz"), params, spec)
+    print(f"kept validation-best model (rollout MAE {best[0]:.4f})")
     return params

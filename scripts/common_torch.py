@@ -1,13 +1,23 @@
-"""The command line of the ionflux_torch study scripts
-(``train_d1_torch.py``, ``train_d2_torch.py``, ``train_neural_ode_torch.py``):
-the JAX scripts' flags (``scripts/common.py``) but for ``--pred`` and
-``--debug`` (their prediction replay and plots are not ported), with
-``--device`` in place of ``--platform``.  ``--method`` sets the solver
-method of every ``eval.simulate`` in the run (``eval.DEFAULT_METHOD``)."""
+"""The command line of the ionflux_torch scripts (``train_*_torch.py``,
+``table_1_torch.py``, ``figure_*_torch.py``): the JAX scripts' flags
+(``scripts/common.py``) with ``--device`` in place of ``--platform``.
+
+- ``--method`` sets the solver method of every ``eval.simulate`` in the run
+  (``eval.DEFAULT_METHOD``);
+- ``--x64`` makes float64 torch's default dtype, as ``jax_enable_x64``
+  makes it JAX's: host data turned into tensors without a dtype (the
+  tables' MAEs, the drawn noise) is float64;
+- ``--trace`` records a ``torch.profiler`` trace of the whole run into
+  ``<outdir>/trace/`` (``trace.json``, Chrome's format), written when the
+  run ends;
+- ``--pred`` replays a trained study (``studies.predict_study``) instead of
+  training it, ``--debug`` draws its surface plot (matplotlib).
+"""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -20,31 +30,84 @@ def study_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--method", type=str, default="dopri5",
                    choices=["dopri5", "adams", "vcabm", "rosenbrock"])
     p.add_argument("--adjoint", action="store_true")
+    p.add_argument("--debug", action="store_true",
+                   help="draw the surface plot (rates3d-000.png)")
+    p.add_argument("--pred", action="store_true",
+                   help="replay the trained model on the prediction "
+                        "protocols instead of training")
     p.add_argument("--cached", action="store_true",
-                   help="reuse <outdir>/surface.npz if it is there")
+                   help="reuse <outdir>/surface.npz or the cached traces")
     p.add_argument("--iters", type=int, default=None,
                    help="override the main training iterations")
     p.add_argument("--outdir", type=str, default=None)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the card)")
+    p.add_argument("--x64", action="store_true",
+                   help="float64 as torch's default dtype")
+    p.add_argument("--trace", action="store_true",
+                   help="a torch.profiler trace of the whole run under "
+                        "<outdir>/trace/")
     return p
 
 
 def parse(parser: argparse.ArgumentParser, argv=None):
-    """The parsed flags; --method becomes ``eval.DEFAULT_METHOD``, as the
-    JAX scripts' ``setup`` does."""
+    """The parsed flags; --method becomes ``eval.DEFAULT_METHOD`` and --x64
+    torch's default dtype, as the JAX scripts' ``setup`` does."""
     args = parser.parse_args(argv)
     if args.method != "dopri5":
         from ionflux_torch import eval as E
 
         E.DEFAULT_METHOD = args.method
         print(f"solver method: {args.method}")
+    if args.x64:
+        import torch
+
+        torch.set_default_dtype(torch.float64)
     return args
 
 
-def study_main(spec, n_seeds: int, description: str, argv=None) -> int:
-    """Parse the flags and run ``studies.run_study_validated(spec)`` into
-    --outdir (default out/<name>-torch)."""
+def outdir(args, default: str) -> str:
+    """--outdir, else out/<default>, created."""
+    path = args.outdir or os.path.join(ROOT, "out", default)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+@contextlib.contextmanager
+def traced(args, out: str):
+    """With --trace, a ``torch.profiler`` trace (CPU, and CUDA where there
+    is a card) of the block, exported to <out>/trace/trace.json when it
+    ends, however it ends; without it, nothing."""
+    if not args.trace:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trace_dir = os.path.join(out, "trace")
+    os.makedirs(trace_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    print(f"profiler trace -> {trace_dir}")
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+def study_main(spec, n_seeds: int, description: str, argv=None, metric=None,
+               target_from: str | None = None):
+    """The study drivers' main: parse the flags; with --pred replay
+    <outdir>/model.npz through ``studies.predict_study`` and return its
+    MAEs, else train by ``studies.run_study_validated(spec)`` into --outdir
+    (default out/<name>-torch) and return the kept params.  metric: the
+    checkpoint metric (default: the table-1 rollouts); target_from: the
+    study whose <outdir>/../<name>/model.npz net prints its "Target Loss"
+    where it exists."""
     args = parse(study_parser(description), argv)
     if args.adjoint:
         print("--adjoint ignored: study training never differentiates "
@@ -52,11 +115,22 @@ def study_main(spec, n_seeds: int, description: str, argv=None) -> int:
               "adjoint path")
     import torch
 
-    from ionflux_torch.studies import run_study_validated
+    from ionflux_torch import studies as S
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    outdir = args.outdir or os.path.join(ROOT, "out", f"{spec.name}-torch")
-    os.makedirs(outdir, exist_ok=True)
-    run_study_validated(spec, outdir, n_seeds=n_seeds, iters=args.iters,
-                        cached=args.cached, device=args.device)
-    return 0
+    out = outdir(args, f"{spec.name}-torch")
+    with traced(args, out):
+        if args.pred:
+            return S.predict_study(
+                spec, S.load_study_params(spec, out, args.device))
+        target_net = None
+        if target_from is not None:
+            d = os.path.join(os.path.dirname(os.path.abspath(out)),
+                             target_from)
+            if os.path.exists(os.path.join(d, "model.npz")):
+                target_net = S.load_study_params(
+                    S.STUDIES[target_from], d, args.device).net
+        return S.run_study_validated(
+            spec, out, n_seeds=n_seeds, iters=args.iters, cached=args.cached,
+            debug=args.debug, metric=metric, target_net=target_net,
+            device=args.device)

@@ -4,9 +4,14 @@ truth the 3-state Markov model), trained on the derivative surface with
 checkpoint validation over 6 init seeds (``studies.run_study_validated``).
 
     python3 scripts/train_d2_torch.py --iters 800
+    python3 scripts/train_d2_torch.py --pred --outdir out/d2
 
 Runs on the card unless ``--device cpu`` is given; writes model.npz,
-model-entire.npz and surface.npz to --outdir (default out/d2-torch)."""
+model-entire.npz and surface.npz to --outdir (default out/d2-torch).
+``--pred`` replays <outdir>/model.npz on every prediction protocol
+(``studies.predict_study``; needs ``test-protocols/ap2hz.csv`` under
+``IONFLUX_REFERENCE``) and returns its MAEs; training returns the kept
+params."""
 
 import os
 import sys
@@ -16,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from common_torch import study_main  # noqa: E402
 
 
-def main(argv=None) -> int:
+def main(argv=None):
     from ionflux_torch.studies import D2
 
     return study_main(D2, 6, "IKr syn. discrepancy fit with NN-d (d2), on "
@@ -24,4 +29,5 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    main()
+    sys.exit(0)

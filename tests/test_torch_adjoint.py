@@ -276,3 +276,104 @@ def test_adjoint_differentiates_a_modules_parameters():
         torch.sum(ys ** 2).backward()
         grads.append([p.grad.clone() for p in mod.parameters()])
     assert_grads_close(grads[0], grads[1])
+
+
+def _spy_branches(monkeypatch):
+    """Record which backward branch each package takes and the accepted
+    steps of every adaptive solve (forward and backward) in call order."""
+    import ionflux.solver.adjoint as JAD
+    import ionflux.solver.fixed as JFX
+
+    seen = {"j_rk4": 0, "t_rk4": 0, "j_acc": [], "t_acc": []}
+    j_rk4, j_ode = JFX.odeint_rk4, JAD.odeint
+    t_rk4_branch, t_ode = TAD._rk4_branch, TAD.odeint
+
+    def j_rk4_spy(*a, **k):
+        seen["j_rk4"] += 1
+        return j_rk4(*a, **k)
+
+    def j_ode_spy(*a, **k):
+        ys, st = j_ode(*a, return_stats=True, **k)
+        jax.debug.callback(lambda n: seen["j_acc"].append(int(n)),
+                           st.n_accepted, ordered=True)
+        return ys
+
+    def t_rk4_spy(*a, **k):
+        seen["t_rk4"] += 1
+        return t_rk4_branch(*a, **k)
+
+    def t_ode_spy(*a, **k):
+        ys, st = t_ode(*a, return_stats=True, **k)
+        seen["t_acc"].append(st.n_accepted)
+        return ys
+
+    monkeypatch.setattr(JFX, "odeint_rk4", j_rk4_spy)
+    monkeypatch.setattr(JAD, "odeint", j_ode_spy)
+    monkeypatch.setattr(TAD, "_rk4_branch", t_rk4_spy)
+    monkeypatch.setattr(TAD, "odeint", t_ode_spy)
+    return seen
+
+
+def _const_leaf_case(n_const, dtype, rtol, atol):
+    """dy/dt = A y + 1e-3 (mean of a constant leaf c): gradients in A and
+    y0, c in args but not differentiated; (port grads, JAX grads)."""
+    rs = np.random.RandomState(3)
+    a0 = np.array([[-0.3, 0.2], [0.1, -0.5]], dtype)
+    y0 = np.array([1.0, 0.5], dtype)
+    c0 = rs.uniform(-1.0, 1.0, n_const).astype(dtype)
+    ts = np.linspace(0.0, 5.0, 6).astype(dtype)
+
+    def t_fn(t, y, args):
+        a, c = args
+        return a @ y + 1e-3 * torch.mean(c)
+
+    def j_fn(t, y, args):
+        a, c = args
+        return a @ y + 1e-3 * jnp.mean(c)
+
+    a = torch.from_numpy(a0).requires_grad_(True)
+    y = torch.from_numpy(y0).requires_grad_(True)
+    ys = t_adj(t_fn, y, torch.from_numpy(ts), (a, torch.from_numpy(c0)),
+               rtol, atol)
+    (torch.sum(ys[-1] ** 2) + torch.sum(ys[3] * 0.3)).backward()
+
+    def loss_j(aa, yy):
+        ys = j_adj(j_fn, yy, jnp.asarray(ts), (aa, jnp.asarray(c0)), rtol,
+                   atol)
+        return jnp.sum(ys[-1] ** 2) + jnp.sum(ys[3] * 0.3)
+
+    g_j = jax.grad(loss_j, argnums=(0, 1))(jnp.asarray(a0), jnp.asarray(y0))
+    return [np_(a.grad), np_(y.grad)], [np.asarray(x) for x in g_j]
+
+
+def _rel(port, ref) -> float:
+    a = np.concatenate([x.astype(np.float64).ravel() for x in port])
+    b = np.concatenate([np.asarray(x, np.float64).ravel() for x in ref])
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def test_adjoint_branch_counts_every_leaf_of_args(monkeypatch):
+    """A 9,000-float constant in args, not differentiated: JAX counts it,
+    2 x 2 + 4 + 9,000 > RK4_ABOVE, and takes the fixed-step branch; so does
+    the port, integrating only A's rows.  Gradients within 1e-6
+    relative (float32)."""
+    seen = _spy_branches(monkeypatch)
+    port, ref = _const_leaf_case(9000, np.float32, 1e-6, 1e-8)
+    n_intervals = 5
+    assert seen["j_rk4"] >= 1 and seen["t_rk4"] == n_intervals
+    assert len(seen["t_acc"]) == 1   # the forward solve only
+    assert _rel(port, ref) < 1e-6
+
+
+def test_adjoint_adaptive_branch_counts_steps_as_jax(monkeypatch):
+    """A 16-float constant keeps the augmented state on the adaptive
+    branch; JAX integrates its cotangent rows and counts them in the
+    starting step's RMS, and so does the port: in float64 the accepted
+    steps of the forward and of every backward solve equal JAX's, and the
+    gradients agree within 1e-6 relative."""
+    seen = _spy_branches(monkeypatch)
+    port, ref = _const_leaf_case(16, np.float64, 1e-8, 1e-10)
+    assert seen["j_rk4"] == 0 and seen["t_rk4"] == 0
+    assert len(seen["t_acc"]) == 6 and len(seen["j_acc"]) == 6
+    assert seen["t_acc"] == seen["j_acc"]
+    assert _rel(port, ref) < 1e-6

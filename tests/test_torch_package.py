@@ -60,7 +60,7 @@ def test_port_imports_neither_jax_nor_ionflux():
         "          'ops.smoothing', 'solver.batched', 'solver.analytic',\n"
         "          'native', 'ops.spline', 'ops.sym_eig', 'solver.fixed',\n"
         "          'solver.adams', 'solver.vcabm', 'solver.implicit',\n"
-        "          'solver.adjoint'):\n"
+        "          'solver.adjoint', 'figures', 'utils.timing'):\n"
         "    assert 'ionflux_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
@@ -70,8 +70,11 @@ def test_port_imports_neither_jax_nor_ionflux():
         "import train_d1_torch, train_d2_torch, common_torch\n"
         "import probe_chain_vs_plain_torch, train_neural_ode_torch\n"
         "import probe_solve_capture_torch, time_neural_ode_torch\n"
+        "import train_s1_torch, train_s2_torch, table_1_torch\n"
+        "import figure_0_s_torch, figure_1_torch, figure_2_torch\n"
+        "import figure_3_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'ionflux'))\n"
+        "             ('jax', 'jaxlib', 'ionflux', 'matplotlib'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

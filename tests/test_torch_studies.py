@@ -1,5 +1,6 @@
 """The studies module (ionflux_torch/studies.py) against ionflux/studies.py:
-the specs, run_study_validated's checkpoint selection, and
+the specs, run_study_validated's checkpoint selection and its debug plot,
+and
 table_rollout_maes_pop's bookkeeping (padding, the Pr4 span, the rescore
 of non-finite rows) on stand-in recordings.
 
@@ -115,10 +116,23 @@ def test_run_study_validated_selects_same_checkpoint(tmp_path, monkeypatch):
     assert os.path.exists(os.path.join(out_t, "model-entire.spec.json"))
 
 
-def test_run_study_validated_refuses_debug(tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        TSt.run_study_validated(TSt.D2, str(tmp_path), debug=True,
-                                device="cpu")
+def test_run_study_validated_debug_writes_rates3d(tmp_path, monkeypatch):
+    """debug=True draws the surface and the kept net's learned surface into
+    rates3d-000.png, as JAX's run_study_validated does."""
+    out = str(tmp_path)
+    _write_surface(out)
+    net = np_net(10, n_layers=1, n_nodes=16, std=0.05)
+    monkeypatch.setattr(TSt, "init_params", lambda spec, generator=None,
+                        device=None: TN.NNdParams(TN.MLP(torch_net(net)),
+                                                  spec.base_hh))
+    TSt.run_study_validated(
+        replace(TSt.D2, step_size=10), out, n_seeds=1, iters=10,
+        val_every=10, cached=True, debug=True, device="cpu",
+        metric=lambda spec, params: {"pr3": 1.0, "score": 1.0})
+    png = os.path.join(out, "rates3d-000.png")
+    assert os.path.getsize(png) > 10_000
+    with open(png, "rb") as fh:
+        assert fh.read(8) == b"\x89PNG\r\n\x1a\n"
 
 
 # Stand-in recordings at 1 ms: (n_sweeps, period) for the multi-sweep ones
