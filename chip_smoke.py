@@ -52,7 +52,8 @@ before it and read just after:
   (i)-(k) the three kernels of this path against their plain versions: the
   HH-population kernel at 128 lanes on a Pr3 and a Pr5 sweep with a y0 carry
   and with a stiff lane that must die alone, the RK4 kernel, the population
-  solve; times and bounds.
+  solve; times and bounds (each plain version, seconds long, timed on its
+  one call with no warm-up run).
 
 The while-loop sweep, the popsweep's mxu_bf16 mode and the Mosaic probe,
 each through its entry point, counters set to 0 just before and read just
@@ -125,8 +126,9 @@ D2's surface-training recipe (``studies.run_study_validated``):
       solves by the device-paced ``odeint``, timed apart from the host's
       splines); the device-paced ``odeint`` against ``_odeint_stepwise`` on
       one activation protocol's Markov ground truth, both on the card (bit
-      for bit: records, counts and outputs), with ms per step and the
-      device's idle share, and its current against the CPU's;
+      for bit: records, counts and outputs), with ms per step, the
+      device's idle share (profiled to 1,200 ms) and its current against
+      the CPU's;
       ``_table_targets(D2, noisy=True)`` (five chained ground-truth solves
       on the recordings); then, counters set to 0 just before and read just
       after, ``run_study_validated(D2, n_seeds=2, iters=800)``: the full
@@ -175,17 +177,19 @@ The s-studies and the d-study replay (no kernel; the device-paced
 ``odeint`` and the chained solve), on a stand-in reference checkout
 (``standin_reference``: test-protocols/ap2hz.csv is the recorded APs
 waveform's first 3,000 ms, written before ``studies`` is imported):
-  (v) ``studies.predict_study`` of the committed out/s1 and out/s2 models
-      on all 26 prediction rows, every row but AP2Hz against the JAX
+  (v) ``studies.predict_study`` of the committed out/s1 model (out/s2's
+      is the depth cut) on all 26 prediction rows, every row
+      but AP2Hz against the JAX
       package's out/<s>/log2 (1e-2 relative; a TPU's numbers), seconds per
       row; the 3 ms and 10 ms activation-time-constant rows of S1 by one
       ``simulate_cases`` on the card and on the CPU (1e-4 of the range 50
       ms or more from a step edge, 1e-3 anywhere);
       ``run_study_validated(S1, metric=s_rollout_maes)`` on S1's full
-      surface, cut in depth to 1 seed x 800 updates (2 checkpoints; full
-      MLP, full 1,000-update pretrain): the surface's seconds, ms per
-      replayed Adam update, seconds per ``s_rollout_maes`` call, the kept
-      checkpoint; ``run_study(S2)`` at 200 updates on the cached surface,
+      surface, cut in depth to 1 seed x 400 updates (1 checkpoint; full
+      MLP, full 1,000-update pretrain), then 100
+      updates replayed from the captured update: the surface's seconds, ms
+      per replayed Adam update, seconds per ``s_rollout_maes`` call, the
+      kept checkpoint; ``run_study(S2)`` at 200 updates on the cached surface,
       with the kept S1 net's "Target Loss", ending in its AP2Hz line;
   (w) ``scripts/table_1_torch.py``'s ``main`` on out/d1, out/d2 and
       HH_D0_FIT, cut to the Sinusoidal and APs columns (8 solves; the
@@ -193,6 +197,31 @@ waveform's first 3,000 ms, written before ``studies`` is imported):
       ``utils.timing.StageTimer`` on the card, its MAEs against
       out/table-1/table-1.txt (JAX on a TPU with the reference's noise:
       1e-2 relative, a rough check), and its ``--cached`` rerun equal;
+The real-data path (``ionflux_torch.realdata``, ``rstudies``,
+``scripts/train_r0_bad_torch.py``) on full-length stand-in caches that it
+writes into the stand-in checkout (``tests/_r_study_standins.py``: r1/ on
+Pr3 + Pr5, 213,804 points; r1-bad/ on Pr3 + Pr4, 147,336), counters set
+to 0 just before and read just after:
+  (x) in the defaults a user gets (float32 recoveries, no patch):
+      ``run_real_study(R1)`` at full width (5 x 200 NN-f, the
+      1,000-update pretrain) cut in depth to one 400-update chunk,
+      validated on Pr5 by the chained solve, then 100 updates replayed from
+      the captured update (ms per replayed Adam update, s per validation,
+      the kept Pr5 MAE); ``predict_real_study`` of the committed out/r1
+      against the JAX package's CPU MAEs on the same stand-in (1e-2
+      relative; out/r2's replay is the depth cut); every protocol these
+      recovered (``recover_measurements`` of r1/ and r1-bad/) against a g r
+      (V - E) with r by the exact propagator (1e-4 of the range); r0-bad
+      at population 8 on the recovered r1-bad currents: its four objectives
+      against the analytic one (1e-2), two fused evaluations (23 B3
+      launches each, the second one graph replay), the host-loop CMA-ES
+      over the analytic objective (uncut) and ``cmaes_onchip`` (K2; uncut,
+      JAX's rule stops it), both within 1e-2 of the stand-in's generating
+      p1-p4, and ``cmaes_onchip`` over the fused objective (16
+      generations, B3 counted through the replayed chunks); then the
+      replay against the eager objective (bit for bit) and B3 against its
+      plain version on r0-bad's lattice, Pr3 sweep 0 and Pr4 sweep 0 with
+      the y0 carry (5e-3);
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
@@ -279,6 +308,7 @@ LONG_TOL = 2e-2       # chained popsweep vs simulate_long, of the range
 # (q): D2's recipe, cut in depth from 6 seeds x 8,000 updates to 2 x 800
 # (4 checkpoints of the full 7-layer, 200-wide NN-d on the full surface)
 Q_SEEDS, Q_ITERS = 2, 800
+Q_PROFILE_MS = 1200.0  # the profiled odeint's horizon, the 1,000 ms edge in
 SURF_FAR_TOL = 1e-5   # card vs CPU ground truth, of the range, >= 50 ms from
                       # a step edge (tests/test_torch_surface.py)
 SURF_ALL_TOL = 1e-3   # anywhere: at an edge the two adaptive solves straddle
@@ -312,8 +342,12 @@ BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
+T0 = time.perf_counter()
+
+
 def log(*args) -> None:
-    print(*args, flush=True)
+    """A line of the run's log, led by the seconds since the start."""
+    print(f"[{time.perf_counter() - T0:6.1f}]", *args, flush=True)
 
 
 def device_line() -> str:
@@ -628,7 +662,8 @@ def forward_path(dev, rows) -> dict:
     s = F._sweep_setup(d1.net, d1.rgate, b_act.v, ts_act, 0.0, 0.1,
                        float(ts_act[-1]), 1e-6, 1e-8, TRIPS, None)
     ms_k, out_k = cuda_ms(lambda: F._trip_solve_cuda(s), reps=3)
-    ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1)
+    ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1,
+                          warm=False)
     ys_k = F._dense_eval_ft(*out_k[:3], out_k[3][0], out_k[3][1], ts_act,
                             lane_ok=out_k[4][0])
     ys_p = F._dense_eval_ft(*out_p[:3], out_p[3][0], out_p[3][1], ts_act,
@@ -677,7 +712,8 @@ def forward_path(dev, rows) -> dict:
                            B40_TOL["rtol"], B40_TOL["atol"], B40_TRIPS, None)
         ms_k, out_k = cuda_ms(lambda: F._trip_solve_cuda(s), reps=3)
         info = F._trip_solve_cuda.last_pass
-        ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1)
+        ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1,
+                              warm=False)
         n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
         ys = [F._dense_eval_ft(*o[:3], o[3][0], o[3][1], ts40,
                                lane_ok=o[4][0]) for o in (out_k, out_p)]
@@ -707,7 +743,8 @@ def forward_path(dev, rows) -> dict:
                           0.1, float(ts_deact[-1]), 1e-5, 1e-7, TRIPS, None,
                           None, True, False, 1)
     ms_k, out_k = cuda_ms(lambda: F._trip_solve_cuda(s), reps=3)
-    ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1)
+    ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1,
+                          warm=False)
     n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
     log(f"(c) popsweep P={P_POP} Q=9->16: n_acc/n_valid kernel {n_k}, plain "
         f"{n_p}; kernel {ms_k:.3f} ms ({ms_k / n_k[1]:.4f} ms per executed "
@@ -891,7 +928,7 @@ def d0_path(dev, rows):
         ms_k, out_k = cuda_ms(lambda: H._hh_pop_solve(
             params, v, y0, plain=False, **kw), reps=reps)
         ms_p, out_p = cuda_ms(lambda: H._hh_pop_solve(
-            params, v, y0, plain=True, **kw), reps=1)
+            params, v, y0, plain=True, **kw), reps=1, warm=False)
         n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
         same = all(torch.equal(a[:n_p[1]], b[:n_p[1]])
                    for a, b in zip(out_k[:3], out_p[:3]))
@@ -975,7 +1012,7 @@ def d0_path(dev, rows):
     ms_w, ys_w = cuda_ms(lambda: H.fused_hh_rk4(
         pop128, win, n_out=n_win, **rk), reps=1)
     ms_p, ys_p = cuda_ms(lambda: H.fused_hh_rk4_plain(
-        pop128, win, n_out=n_win, **rk), reps=1)
+        pop128, win, n_out=n_win, **rk), reps=1, warm=False)
     err = float((ys_w - ys_p).abs().max())
     log(f"(j) RK4 on the first {RK4_WINDOW + 1} knots: kernel {ms_w:.3f} ms, "
         f"plain {ms_p:.1f} ms, max |dy| kernel vs plain = {err:.3e} (tol "
@@ -1012,7 +1049,8 @@ def d0_path(dev, rows):
     s = F._pop_setup(pop64.net.layers, pop64.rgate, act20.v, ts_act, 0.0,
                      0.1, float(ts_act[-1]), 1e-5, 1e-7, TRIPS)
     ms_k, out_k = cuda_ms(lambda: F._trip_solve_cuda(s), reps=3)
-    ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1)
+    ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1,
+                          warm=False)
     n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
     log(f"(k) population solve P={P_POP}: n_acc/n_valid kernel {n_k}, plain "
         f"{n_p}; kernel {ms_k:.3f} ms ({ms_k / n_k[1]:.4f} ms per executed "
@@ -1241,7 +1279,7 @@ def validation_path(dev, rows) -> None:
 @contextlib.contextmanager
 def timed_calls(module, name: str, log_to: list):
     """Replace module.name by a wrapper that synchronises the card around
-    each call and appends (seconds, args, result) to log_to."""
+    each call and appends (seconds, args, result, keywords) to log_to."""
     fn = getattr(module, name)
 
     def wrapper(*args, **kw):
@@ -1249,7 +1287,7 @@ def timed_calls(module, name: str, log_to: list):
         t = time.perf_counter()
         out = fn(*args, **kw)
         torch.cuda.synchronize()
-        log_to.append((time.perf_counter() - t, args, out))
+        log_to.append((time.perf_counter() - t, args, out, kw))
         return out
 
     with mock.patch.object(module, name, wrapper):
@@ -1330,14 +1368,22 @@ def training_path(dev, rows) -> None:
         if not (same and st_b.ok):
             raise RuntimeError(f"(q) blocked odeint {st_b} differs from the "
                                f"per-step loop {st_s}")
-        p_secs, busy, _ = profiled(lambda: OD.odeint(rhs, y0, t1, args),
+        # profiled to Q_PROFILE_MS only: the trace of the whole solve
+        # (~360,000 kernels) took ~55 s to read back
+        head = t1[t1 <= Q_PROFILE_MS]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n_head = OD.odeint(rhs, y0, head, args, return_stats=True)[1].n_steps
+        torch.cuda.synchronize()
+        s_head = time.perf_counter() - t
+        p_secs, busy, _ = profiled(lambda: OD.odeint(rhs, y0, head, args),
                                    "none")
         if busy > 0:
-            log(f"(q) odeint profiled: device busy {busy:.1f} ms "
-                f"({1e3 * busy / 1e3 / steps:.3f} ms per step; {p_secs:.3f} s "
-                f"host under the profiler), idle "
-                f"{100 * (1 - busy / 1e3 / secs['blocked']):.1f}% of the "
-                f"unprofiled solve's {secs['blocked']:.3f} s")
+            log(f"(q) odeint to {Q_PROFILE_MS:.0f} ms ({n_head} steps) "
+                f"profiled: device busy {busy:.1f} ms ({busy / n_head:.3f} "
+                f"ms per step; {p_secs:.3f} s host under the profiler), idle "
+                f"{100 * (1 - busy / 1e3 / s_head):.1f}% of the unprofiled "
+                f"solve's {s_head:.3f} s")
         # the card's ground truth against the CPU's (one protocol)
         cpu_cur = D.simulate_current(
             MARKOV_B06, P.activation_protocol(0.0, device="cpu"),
@@ -1575,7 +1621,8 @@ def while_probe_path(dev, rows, fwd: dict) -> None:
     steps = WHILE["max_steps"]
     ms_k, out_k = cuda_ms(lambda: F._while_solve_cuda(s, steps), reps=3)
     info = F._while_solve_cuda.last_pass
-    ms_p, out_p = cuda_ms(lambda: F._while_solve_plain(s, steps), reps=1)
+    ms_p, out_p = cuda_ms(lambda: F._while_solve_plain(s, steps), reps=1,
+                          warm=False)
     n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
     ys_k, ys_p = [F._dense_eval_popsweep_ft(*o[:3], o[3][0], o[3][0].abs(),
                                             ts_act)[0] for o in (out_k, out_p)]
@@ -1649,7 +1696,8 @@ def while_probe_path(dev, rows, fwd: dict) -> None:
         raise RuntimeError(f"(m): Q pads to {q_pad}; biases must be rounded")
     ms_k, out_k = cuda_ms(lambda: F._trip_solve_cuda(s), reps=3)
     ms_32, out_32 = cuda_ms(lambda: F._trip_solve_cuda(s32), reps=3)
-    ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1)
+    ms_p, out_p = cuda_ms(lambda: F._trip_solve_plain(s), reps=1,
+                          warm=False)
     n_k, n_p, n_32 = (o[3].tolist() for o in (out_k, out_p, out_32))
     log(f"(m) popsweep mxu_bf16 P={P_POP} Q=9->16: n_acc/n_valid kernel "
         f"{n_k}, plain {n_p}; kernel {ms_k:.3f} ms ({ms_k / n_k[1]:.4f} ms "
@@ -2358,7 +2406,10 @@ CPU_ROW_TOL = 1e-4    # two short rows, card vs CPU, of the current's range,
 CPU_ROW_EDGE_TOL = 1e-3   # ... and anywhere: at an edge the two adaptive
                           # f32 solves straddle it differently ((q)'s rule)
 CPU_ROWS = ("3.0ms", "10.0ms")   # the activation-time-constant rows
-V_SEEDS, V_ITERS, V_EVERY = 1, 800, 400   # S1's recipe, cut from 4 x 4,000
+V_SEEDS, V_ITERS, V_EVERY = 1, 400, 400   # S1's recipe, cut from 4 x 4,000
+V_REPLAY = 100        # updates replayed after it from the captured update
+# the depth cut of (v): predict_study of S1 only; S2's (29.5 s,
+# within 1.07e-3 of out/s2/log2 on the card, PERF.md) is left out
 V_S2_ITERS = 200      # run_study(S2), cut from 4,000
 # (w): the d-study replay
 TABLE_RTOL = 1e-2     # table-1 MAEs vs out/table-1/table-1.txt (JAX on a
@@ -2429,10 +2480,11 @@ def standin_reference() -> str:
 
 
 def s_study_path(dev) -> None:
-    """(v) the s-studies on the card: ``predict_study`` of the committed S1
-    and S2 checkpoints against out/<s>/log2 and two of its rows against the
+    """(v) the s-studies on the card: ``predict_study`` of the committed
+    S1 checkpoint against out/s1/log2 and two of S1's rows against the
     CPU, ``run_study_validated(S1, metric=s_rollout_maes)`` on S1's full
-    surface (cut in depth), and ``run_study(S2)`` on the cached surface."""
+    surface (cut in depth; then V_REPLAY updates replayed from the captured
+    update), and ``run_study(S2)`` on the cached surface."""
     import tempfile
 
     from ionflux_torch import eval as E
@@ -2445,11 +2497,9 @@ def s_study_path(dev) -> None:
         f"reference's file; its rows are not the paper's numbers")
     t_phase = time.perf_counter()
     # ---- predict_study on the committed checkpoints ---------------------
-    kept = {}
-    for spec in (S.S1, S.S2):
+    for spec in (S.S1,):
         params = S.load_study_params(spec, os.path.join(ROOT, "out",
                                                         spec.name), dev)
-        kept[spec.name] = params
         lines, calls = [], []
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2530,16 +2580,21 @@ def s_study_path(dev) -> None:
                 val_every=V_EVERY, cached=True, metric=S.s_rollout_maes,
                 device=dev)
             secs_run = time.perf_counter() - t
-        later = chunks[1:]
-        ms_it = 1e3 * sum(c[0] for c in later) / max(
-            1, sum(c[2][2].shape[0] for c in later))
+        # the study's update, replayed from the captured graph
+        _, args, _, kw = chunks[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        S.fit_chunk(*args, **dict(kw, iters=V_REPLAY))
+        torch.cuda.synchronize()
+        ms_it = (time.perf_counter() - t) * 1e3 / V_REPLAY
         scores = [c[2]["score"] for c in metric_calls]
         kept_line = [ln for ln in lines if ln.startswith("kept")]
         log(f"(v) study_surface(S1): {v.size} points in {secs_surface:.1f} "
             f"s; run_study_validated(S1, n_seeds={V_SEEDS}, "
             f"iters={V_ITERS}, metric=s_rollout_maes): {secs_run:.1f} s; "
-            f"{ms_it:.3f} ms per replayed Adam update (the first chunk, "
-            f"with the warm-up and the capture, {chunks[0][0]:.2f} s); "
+            f"{ms_it:.3f} ms per replayed Adam update ({V_REPLAY} more; "
+            f"the chunk, with the warm-up and the capture, "
+            f"{chunks[0][0]:.2f} s); "
             f"s_rollout_maes {[round(c[0], 1) for c in metric_calls]} s a "
             f"call (the first also solves the ground truth); scores "
             f"{[round(x, 5) for x in scores]}; {kept_line}")
@@ -2611,6 +2666,281 @@ def replay_path(dev) -> None:
                            f"{again == table}")
 
 
+# (x): the real-data path on full-length stand-in cell-5 caches
+# (tests/_r_study_standins.py: r1/ on Pr3 + Pr5, r1-bad/ on Pr3 + Pr4)
+X_RECOVER_TOL = 1e-4  # recovered current (float32, the default) vs a g r
+                      # (V - E), r by the exact propagator, of the range
+X_ITERS = 400         # run_real_study(R1), cut from 16,000: one 400-update
+                      # chunk, validated on Pr5
+X_REPLAY = 100        # updates replayed after it from the captured update
+X_PRED_RTOL = 1e-2    # --pred MAEs vs the JAX package's on the CPU
+# tests/_r_pred_reference.py (JAX on the CPU, its measurements recovered in
+# float64) on the same stand-in: predict_real_study(R1, out/r1).  The
+# depth cut of (x): out/r2's replay (17.5 s, within 6.0e-5 of JAX's on the
+# card, PERF.md) is left out
+X_PRED_JAX = {"pr3": 0.08193854111296334, "pr5": 0.10295668579783995,
+              "pr4": 0.053829042323877044}
+X_OBJ_RTOL = 1e-2     # the four r0-bad objectives against the analytic one
+X_FIT_RTOL = 1e-2     # each fitted p1-p4 vs the stand-in's generating ones
+                      # (a CPU rehearsal at full size on float32
+                      # measurements: 2.2e-3, both fits)
+X_FIT_CAP = 600       # cmaes_onchip's generations (JAX's rule stops first)
+X_FUSED_ITERS = 16    # cmaes_onchip over the fused objective: two chunks
+
+
+def real_data_path(dev, rows) -> None:
+    """(x) the real-data path on full-length stand-in caches, counters set
+    to 0 just before and read just after, every call in the defaults a
+    user gets (float32 recoveries): ``run_real_study(R1)`` at full width
+    (5 x 200 NN-f, its 1,000-update pretrain, one 400-update chunk
+    validated on Pr5 by the chained solve, then X_REPLAY updates replayed
+    from the captured update); ``predict_real_study(R1)`` of the committed
+    out/r1 against the JAX package's CPU MAEs; each protocol that these
+    recovered (``recover_measurements`` of r1/ and r1-bad/) against the
+    exact propagator's r-gate; the r0-bad fit
+    (``scripts/train_r0_bad_torch.py``) at population 8 on the recovered
+    r1-bad measurements: its four objectives, two fused evaluations (23 B3
+    launches each, the second a graph replay), the host-loop CMA-ES over
+    the analytic objective and ``cmaes_onchip`` (K2) over the analytic
+    objective (both against the stand-in's generating p1-p4) and over the
+    fused one (X_FUSED_ITERS generations, B3 inside the replayed chunks).
+    Then B3 against its plain version on a Pr3 and a Pr4 sweep of r0-bad's
+    lattice (the second with a y0 carry) and the replay against the eager
+    objective, bit for bit."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _r_study_standins as RS
+    import train_r0_bad_torch as T
+    from ionflux_torch import protorec
+    from ionflux_torch import rstudies as R
+    from ionflux_torch import studies as S
+    from ionflux_torch.fit.cmaes import _default_popsize, cmaes, cmaes_onchip
+    from ionflux_torch.models import registry as REG
+    from ionflux_torch.ops import fused_solve as F
+    from ionflux_torch.ops import hh_solve as H
+    from ionflux_torch.ops import sym_eig as SE
+
+    f32 = torch.float32
+    b3 = H.fused_hh_pop_solve_ft
+    t_phase = time.perf_counter()
+    log(f"(x) the caches are STAND-INS written into {S.REFDIR}: a from "
+        f"HH_CELL5_FIT (r1, plus 1e-3 noise) and from the reference r0-bad "
+        f"fit (r1-bad); not the reference's files, not the paper's numbers")
+    t = time.perf_counter()
+    counts = RS.write_r_caches(S.REFDIR)
+    log(f"(x) stand-in caches {counts} points in "
+        f"{time.perf_counter() - t:.1f} s")
+    if counts != {"r1": 213804, "r1-bad": 147336}:
+        raise RuntimeError(f"(x) stand-in lattice {counts}")
+    reset_counts()
+
+    recoveries = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            timed_calls(R, "recover_measurements", recoveries):
+        # ---- run_real_study(R1) at full width ----------------------------
+        chunks, vals, lines = [], [], []
+        surface = R.load_reference_surface(R.R1)
+        with tee_stdout(lines), timed_calls(R, "fit_chunk", chunks), \
+                timed_calls(R, "simulate_long", vals):
+            t = time.perf_counter()
+            R.run_real_study(R.R1, os.path.join(tmp, "r1"), iters=X_ITERS,
+                             surface=surface, device=dev)
+            secs_run = time.perf_counter() - t
+        maes = [float(ln.split("pr5 MAE")[1].split()[0]) for ln in lines
+                if ln.startswith("Iter ")]
+        if not (len(chunks) == X_ITERS // 400 and len(maes) == len(chunks)
+                and np.isfinite(min(maes)) and "pretrain done" in lines):
+            raise RuntimeError(f"(x) run_real_study: {lines[-3:]}")
+        # the study's update, replayed from the captured graph
+        _, args, _, kw = chunks[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        R.fit_chunk(*args, **dict(kw, iters=X_REPLAY))
+        torch.cuda.synchronize()
+        ms_it = (time.perf_counter() - t) * 1e3 / X_REPLAY
+        n_pts = int(args[2].shape[0])
+        log(f"(x) run_real_study(R1, iters={X_ITERS}): {secs_run:.1f} s on "
+            f"{n_pts} points (the recovery of r1/ for its validator "
+            f"{recoveries[0][0]:.1f} s; the chunk, with the warm-up and the "
+            f"capture, {chunks[0][0]:.2f} s); {ms_it:.3f} ms per replayed "
+            f"Adam update ({X_REPLAY} more); Pr5 validation "
+            f"{[round(c[0], 2) for c in vals]} s a call; Pr5 MAEs {maes}, "
+            f"kept {min(maes):.6f}")
+
+        # ---- --pred replay of the committed JAX-trained checkpoint -------
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = R.predict_real_study(R.R1, os.path.join(ROOT, "out", "r1"),
+                                   device=dev)
+        secs = time.perf_counter() - t
+    rel = {k: abs(got[k] - w) / w for k, w in X_PRED_JAX.items()}
+    log(f"(x) predict_real_study(r1): {secs:.1f} s (its two recoveries "
+        f"{[round(c[0], 1) for c in recoveries[1:]]} s); MAEs "
+        f"{ {k: round(got[k], 6) for k in X_PRED_JAX} } against JAX on the "
+        f"CPU {X_PRED_JAX}: largest relative difference "
+        f"{max(rel.values()):.3e} (tol {X_PRED_RTOL})")
+    if not max(rel.values()) <= X_PRED_RTOL:
+        raise RuntimeError(f"(x) --pred r1: {got} vs {X_PRED_JAX}")
+
+    # ---- the recoveries these made, against the exact r-gate -------------
+    if len(recoveries) != 3:
+        raise RuntimeError(f"(x) {len(recoveries)} recoveries, expected 3")
+    meas = {}
+    for secs, args, out, kw in recoveries[1:]:
+        sub = os.path.basename(args[0])
+        meas[sub] = out
+        errs = RS.recovery_errors(args[0], out, args[1], args[2])
+        for name, (tl, err) in errs.items():
+            k = int(np.argmax(err))
+            log(f"(x) recover_measurements {sub}/{name} float32: {tl.size} "
+                f"points; |I - a g r (V - E)| with r exact: max "
+                f"{err[k]:.3e} of the range at {tl[k]:.1f} ms (tol "
+                f"{X_RECOVER_TOL})")
+            if not err[k] <= X_RECOVER_TOL:
+                raise RuntimeError(f"(x) recovery {sub}/{name}: {err[k]}")
+    if sorted(meas) != ["r1", "r1-bad"]:
+        raise RuntimeError(f"(x) recovered {sorted(meas)}")
+
+    # ---- r0-bad on the card -------------------------------------------------
+    m = {k: meas["r1-bad"][k] for k in ("pr3", "pr4")}
+    pop = _default_popsize(len(T.P0))
+    xs = T.P0[None] * (1.0 + R_SPREAD * np.random.RandomState(0).randn(
+        pop, 4))
+    xs[0] = T.P0
+    objs = dict(lockstep=T.make_objective(m, pop, device=dev),
+                analytic=T.make_objective_analytic(m, pop, device=dev),
+                fused=T.make_objective_fused(m, pop, trips=HH_TRIPS,
+                                             device=dev),
+                native=T.make_objective_native(m))
+    sse, secs = {}, {}
+    for name, obj in objs.items():
+        t = time.perf_counter()
+        sse[name] = obj(xs[:1] if name == "native" else xs)
+        secs[name] = time.perf_counter() - t
+    n_first = b3.launches
+    n_sweeps = sum(protorec.SWEEPS[f"{n}-cell5"][0] for n in ("pr3", "pr4"))
+    t = time.perf_counter()
+    f_replay = objs["fused"](xs)
+    secs_replay = time.perf_counter() - t
+    ref = sse["analytic"]
+    rel = {k: float(np.max(np.abs(f - ref[:f.size]) / ref[:f.size]))
+           for k, f in sse.items()}
+    log(f"(x) r0-bad objectives at {pop} members (native: P0): SSE(P0) "
+        f"{ {k: round(float(f[0]), 4) for k, f in sse.items()} }; seconds "
+        f"{ {k: round(v, 3) for k, v in secs.items()} } (first calls), the "
+        f"fused replay {secs_replay:.4f} s; relative to the analytic "
+        f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (tol {X_OBJ_RTOL}); "
+        f"B3 launches {n_first} + {b3.launches - n_first} (eager, replay)")
+    if not (max(rel.values()) <= X_OBJ_RTOL and n_first == n_sweeps
+            and b3.launches == 2 * n_sweeps):
+        raise RuntimeError(f"(x) r0-bad objectives: {sse}, launches "
+                           f"{b3.launches}")
+    kw = dict(sigma0=T.P0 * 0.1, bounds=(T.P0 * 0.1, T.P0 * 10.0),
+              max_unchanged_iterations=100, unchanged_threshold=1e-3)
+    ana = objs["analytic"]
+    t = time.perf_counter()
+    fit_h = cmaes(ana, T.P0, **kw)
+    secs_h = time.perf_counter() - t
+    t = time.perf_counter()
+    fit_o = cmaes_onchip(ana.device_fn, T.P0, max_iterations=X_FIT_CAP,
+                         device=dev, **kw)
+    secs_o = time.perf_counter() - t
+    for label, fit, s_ in (("host cmaes", fit_h, secs_h),
+                           ("cmaes_onchip", fit_o, secs_o)):
+        ratio = fit.x / RS.R1BAD_TRUTH
+        log(f"(x) r0-bad {label} over the analytic objective: "
+            f"{fit.iterations} generations, {s_:.2f} s, best SSE "
+            f"{fit.fx:.6f}; found / stand-in truth {ratio.tolist()} (tol "
+            f"{X_FIT_RTOL})")
+        if fit.hit_max_iterations or not np.all(np.abs(ratio - 1)
+                                                <= X_FIT_RTOL):
+            raise RuntimeError(f"(x) r0-bad {label}: {ratio}")
+
+    # ---- cmaes_onchip over the fused objective (--fused --onchip) --------
+    n0 = b3.launches
+    t = time.perf_counter()
+    fit_f = cmaes_onchip(objs["fused"].device_fn, T.P0,
+                         max_iterations=X_FUSED_ITERS, device=dev, **kw)
+    secs_f = time.perf_counter() - t
+    n_f = b3.launches - n0
+    want = n_sweeps * (1 + 8 * len(fit_f.history))
+    log(f"(x) r0-bad cmaes_onchip over the fused objective: "
+        f"{fit_f.iterations} generations (history "
+        f"{[h[0] for h in fit_f.history]}), {secs_f:.2f} s with the capture; "
+        f"B3 launches {n_f} ({n_sweeps} eager warm-up + {n_sweeps} x 8 x "
+        f"{len(fit_f.history)} replayed, the frozen lookahead chunk "
+        f"included; expected {want}); best SSE {fit_f.fx:.4f}")
+    if (fit_f.iterations != X_FUSED_ITERS or n_f != want
+            or not np.isfinite(fit_f.fx)):
+        raise RuntimeError(f"(x) cmaes_onchip over the fused objective: "
+                           f"{fit_f.iterations} iterations, {n_f} launches")
+    launches = {"fused_hh_pop_solve_ft": b3.launches,
+                "sym_eig": SE.sym_eig.launches}
+    check_counts("(x) real-data path", launches)
+
+    # ---- the fused replay against the eager objective, bit for bit -------
+    f_eager = objs["fused"].device_fn(torch.tensor(xs, dtype=f32,
+                                                   device=dev))
+    f_eager = f_eager.cpu().numpy().astype(np.float64)
+    same = np.array_equal(f_replay, f_eager)
+    log(f"(x) fused objective: graph replay "
+        f"{'bit-identical to' if same else 'DIFFERS from'} the eager "
+        f"device_fn")
+    if not same:
+        raise RuntimeError("(x) the fused objective's graph and device_fn "
+                           "differ")
+
+    # ---- B3 against its plain version on r0-bad's lattice ----------------
+    p8 = torch.tensor(np.concatenate([xs, np.tile(T.RGATE, (pop, 1))], 1),
+                      dtype=f32, device=dev)
+    errs, y0 = [], None
+    for name in ("pr3", "pr4"):
+        protos, _, n_sw, period = T._sweep_protos(f"{name}-cell5", dev)
+        dt = float(protos.dt[0])
+        idx, d = T._lattice(m, name)
+        v_full = protorec.load_voltage(f"{name}-cell5")[0]
+        ts_aug = torch.as_tensor(T._fused_lattice(idx, d, v_full, n_sw,
+                                                  period, dt)[0][0],
+                                 device=dev)
+        kw = dict(proto_t0=0.0, proto_dt=dt, t_end=period * dt, rtol=1e-5,
+                  atol=1e-7, trips=HH_TRIPS)
+        ms_k, out_k = cuda_ms(lambda: H._hh_pop_solve(
+            p8, protos.v[0], y0, plain=False, **kw), reps=3)
+        ms_p, out_p = cuda_ms(lambda: H._hh_pop_solve(
+            p8, protos.v[0], y0, plain=True, **kw), reps=1, warm=False)
+        n_k, n_p = out_k[3].tolist(), out_p[3].tolist()
+        ys = [F._dense_eval_ft(*o[:3], o[3][0], o[3][1], ts_aug,
+                               lane_ok=o[4]) for o in (out_k, out_p)]
+        errs.append(gate_diff(f"(x) B3 at {pop} lanes, {name} sweep 0 "
+                              f"({ts_aug.numel()} outputs"
+                              f"{', y0 carried' if y0 is not None else ''})",
+                              *ys))
+        if n_k[1] != n_p[1]:
+            raise RuntimeError(f"(x) B3 {name}: n_valid {n_k} vs {n_p}")
+        y0 = ys[0][:, -1, :].contiguous()
+        in_bytes = (protos.v[0].numel() + p8.numel() + 2 * pop) * 4
+        b_ms, b_by = trip_bound(n_k[1], pop, HH_RHS_OPS, in_bytes)
+        log(f"(x) B3 {name} sweep 0: kernel {ms_k:.3f} ms ({n_k[1]} "
+            f"executed trips, {ms_k * 1e3 / n_k[1]:.3f} us a trip), plain "
+            f"{ms_p:.1f} ms; bound {b_ms:.5f} ms ({b_by})")
+        if name == "pr3":
+            b3_fields = dict(r0bad_ms=ms_k, r0bad_plain_ms=ms_p,
+                             r0bad_n_valid=n_k[1], r0bad_bound_ms=b_ms,
+                             r0bad_outputs=ts_aug.numel())
+    for row in rows:
+        if row["name"] in launches:
+            n = launches[row["name"]]
+            row.setdefault("launches_by_path", {
+                "earlier phases": row["launches"]})["real-data path (x)"] = n
+            row["launches"] += n
+        if row["name"] == "fused_hh_pop_solve_ft":
+            row.update(b3_fields)
+            row["max_abs_err"] = max(row["max_abs_err"], *errs)
+    log(f"(x) real-data phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2666,6 +2996,8 @@ def main() -> int:
     log(f"s-studies (v) done at {time.perf_counter() - t_start:.0f} s")
     replay_path(dev)
     log(f"d-study replay (w) done at {time.perf_counter() - t_start:.0f} s")
+    real_data_path(dev, rows)
+    log(f"real-data path (x) done at {time.perf_counter() - t_start:.0f} s")
     shutil.rmtree(refdir)
 
     # ---- (e) results -------------------------------------------------------

@@ -130,3 +130,53 @@ TABLE1 = Constants(np.float32(1.0), np.float32(-88.4))
 
 VRANGE = 100.0     # NN input voltage scale
 NETSCALE = 1000.0  # NN output scale
+
+
+# Real cell-5 r-gate, already in ms^-1 (train-r1.py:171-174); a-gate initial
+# guess p1-p4 as used for pretraining (train-r1.py:849-852).
+CELL5_RGATE = (
+    np.float32(8.73243709432939552e-02),
+    np.float32(7.33380025549188515e-03),
+    np.float32(6.16551007196145754e-03),
+    np.float32(3.15741310933875322e-02),
+)
+HH_CELL5_INIT = _hh(1.13e-4, 7.45e-2, 3.60e-5, 4.49e-2, *CELL5_RGATE)
+
+# Full cell-5 HH fit (FourWaysOfFitting method 3): the r2 NN-d analytic base
+# (train-r2.py:167-174).
+HH_CELL5_FIT = _hh(
+    2.10551451120238317e-04, 6.57994674459572992e-02,
+    3.31717454417642909e-06, 7.43102564328181336e-02, *CELL5_RGATE,
+)
+
+# r1-bad uses rounded r-gate values and its own conductance
+# (train-r1-bad.py:45, 138-141).
+R1BAD_RGATE = (np.float32(8.73e-2), np.float32(8.90e-3),
+               np.float32(5.20e-3), np.float32(3.16e-2))
+HH_R1BAD_INIT = _hh(1.13e-4, 7.45e-2, 3.60e-5, 4.49e-2, *R1BAD_RGATE)
+
+# Architecture sweep grid (architectures/s00.py..s11.py): id -> (n_layers,
+# n_nodes) in the Linear(2,n)+n_layers*Linear(n,n)+Linear(n,1) convention.
+ARCHITECTURES = {
+    "s00": (5, 200), "s01": (1, 200), "s02": (10, 200),
+    "s03": (5, 10), "s04": (1, 10), "s05": (10, 10),
+    "s06": (5, 500), "s07": (1, 500), "s08": (10, 500),
+    "s09": (5, 100), "s10": (1, 100), "s11": (10, 100),
+}
+
+# r0-bad CMA-ES fitted a-gate (r0-bad/model-parameters.txt).
+HH_R0BAD_FIT = _hh(
+    1.9074e-04, 4.8845e-02, 1.3319e-05, 6.2207e-02, *CELL5_RGATE,
+)
+
+# Real cell-5: g from FourWaysOfFitting, E = -88.4 mV (train-r1.py:42-45).
+CELL5_RAW = Constants(np.float32(0.133898199260611944), np.float32(-88.4))
+
+# r1 fudged constants: g*=1.2, E-=5 (train-r1.py:46-47).
+CELL5_R1 = Constants(CELL5_RAW.g * 1.2, CELL5_RAW.e - 5.0)
+
+# r2 keeps g*1.2 but not the E shift (r1-vs-r2 diff; table-2.py:32-37).
+CELL5_R2 = Constants(CELL5_RAW.g * 1.2, CELL5_RAW.e)
+
+# r1-bad conductance (train-r1-bad.py diff: g=0.1524).
+CELL5_R1BAD = Constants(np.float32(0.1524), CELL5_RAW.e - 5.0)

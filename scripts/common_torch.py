@@ -11,7 +11,10 @@
   ``<outdir>/trace/`` (``trace.json``, Chrome's format), written when the
   run ends;
 - ``--pred`` replays a trained study (``studies.predict_study``) instead of
-  training it, ``--debug`` draws its surface plot (matplotlib).
+  training it, ``--debug`` draws its surface plot (matplotlib);
+- the real-data drivers (``real=True``) add ``--smoothi`` (the exp-fit
+  surface variant where the raw CSVs are present) and ``--info sNN`` (an
+  architecture of the r1-tune sweep).
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def study_parser(description: str) -> argparse.ArgumentParser:
+def study_parser(description: str,
+                 real: bool = False) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--method", type=str, default="dopri5",
                    choices=["dopri5", "adams", "vcabm", "rosenbrock"])
@@ -37,6 +41,11 @@ def study_parser(description: str) -> argparse.ArgumentParser:
                         "protocols instead of training")
     p.add_argument("--cached", action="store_true",
                    help="reuse <outdir>/surface.npz or the cached traces")
+    if real:
+        p.add_argument("--smoothi", action="store_true",
+                       help="the exp-fit derivative surface (raw CSVs only)")
+        p.add_argument("--info", type=str, default=None,
+                       help="architecture id s00..s11 (r1-tune sweep)")
     p.add_argument("--iters", type=int, default=None,
                    help="override the main training iterations")
     p.add_argument("--outdir", type=str, default=None)
@@ -134,3 +143,23 @@ def study_main(spec, n_seeds: int, description: str, argv=None, metric=None,
             spec, out, n_seeds=n_seeds, iters=args.iters, cached=args.cached,
             debug=args.debug, metric=metric, target_net=target_net,
             device=args.device)
+
+
+def real_study_main(spec, description: str, argv=None):
+    """The r-study drivers' main: parse the flags (``real=True``); with
+    --pred replay <outdir>/best-model.npz through
+    ``rstudies.predict_real_study`` and return its MAEs, else train by
+    ``rstudies.run_real_study`` into --outdir (default out/<name>-torch)
+    and return the kept params."""
+    args = parse(study_parser(description, real=True), argv)
+    import torch
+
+    from ionflux_torch import rstudies as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = outdir(args, f"{spec.name}-torch")
+    with traced(args, out):
+        if args.pred:
+            return R.predict_real_study(spec, out, device=args.device)
+        return R.run_real_study(spec, out, iters=args.iters,
+                                smoothi=args.smoothi, device=args.device)
