@@ -95,7 +95,7 @@ shape), counters set to 0 just before and read just after:
       ``NOISE_SIGMA`` noise (``RandomState(0)``), Pr4 scored on sweeps 1-3:
       a first call (the eager chain, then its capture as one CUDA graph)
       and a graph replay (9 launches each); then the replay against the
-      eager chain (bit for bit), both chains under the profiler (device
+      eager chain (bit for bit), the replay under the profiler (device
       idle share), the executed trips of each segment, the MAEs against
       the host reduction of the currents (rtol 2e-4, atol 1e-6) and member
       0's Pr4 currents against the plain chained ``simulate_long`` (2e-2 of
@@ -160,7 +160,7 @@ torch ops, replayed from CUDA graphs):
       5e-3 within 50 ms of a step edge, as JAX's own Adams); to 1,200 ms
       (the 1,000 ms edge included) each blocked solve against its
       stepwise loop bit for bit, with ms per step; the device's idle share
-      to 30 ms; ``odeint_rk4`` at a constant 0 mV (250 ms) against ``odeint``
+      to 30 ms (HH_B06 only: d1's is a depth cut); ``odeint_rk4`` at a constant 0 mV (250 ms) against ``odeint``
       and the closed form (1e-5);
   (u) ``scripts/train_neural_ode_torch.py``'s ``main(--protocol act)`` at
       full width (2-200x5-1, pretrained) for three RK4-mode updates (the
@@ -222,6 +222,28 @@ to 0 just before and read just after:
       replay against the eager objective (bit for bit) and B3 against its
       plain version on r0-bad's lattice, Pr3 sweep 0 and Pr4 sweep 0 with
       the y0 carry (5e-3);
+The r-study replay drivers (no kernel; the chained solve and the
+device-paced ``odeint``), on (x)'s stand-in checkout with the replay files
+of tests/_r_replay_standins.py (state dicts of the committed models, the
+HH fit's traces):
+  (y) ``scripts/table_2_torch.py``'s ``main`` at full length in the default
+      mode (out/r1, out/r2, HH_CELL5_FIT), its MAEs against the JAX
+      package's CPU ones on the same stand-in (tests/_r_replay_reference.py;
+      1e-2 relative), its calls' seconds; ``figure_7_torch.main`` at full
+      length (the a-trajectories' ranges); figures 4, 4-s, 5 and 6, table
+      S1 (two of the twelve architectures, ``--stored-pr4``) and the
+      supplements (the AP2Hz case) on the short two-sweep stand-ins, in
+      processes of their own started with the phase: one on the card,
+      three on the CPU, each MAE card against CPU within 1e-3 relative
+      (the supplements' within 1e-3 of the case's current range);
+The sharded population path (``parallel``, B1 in two processes):
+  (z) ``simulate_population_sharded`` of (c)'s 64 perturbed d1 members on
+      the deactivation family over two gloo processes sharing the card (32
+      members a rank, one B1 launch each, counted in the rank; the
+      currents gathered through the host): each rank's shard against one
+      process's ``simulate_population`` of it (bit for bit), the gather
+      against (c)'s unsharded launch (5e-3, JAX's), every rank's copy
+      equal; then ``entry.dryrun_multichip(2)`` on the card;
   (e) the kernel table as one JSON line, the card's name and power limit, and
       the final ``{"ok": true, ...}`` line.
 
@@ -235,9 +257,9 @@ f32 and in bf16, the population solve) also carry their executed trips
 the two sweeps' rows (the cluster pass) their executed trips or steps, the
 milliseconds per trip or step, the cluster size and count and the mlp()
 pass's time on the same inputs (B2 also at clusters of 16 and at (b')).
-The f32 popsweep's ``launches`` adds (p)'s and (q)'s to the forward
-path's (``launches_by_path``), and its row carries (p)'s eager and replay
-seconds and ms per executed trip and (q)'s chain seconds, rescored rows,
+The f32 popsweep's ``launches`` adds (p)'s, (q)'s and (z)'s (its ranks')
+to the forward path's (``launches_by_path``), and its row carries (p)'s
+eager and replay seconds and ms per executed trip and (q)'s chain seconds, rescored rows,
 ms per Adam update, its bound and the chunk's idle share; the probe's its
 bound for the whole product, its chain floor and the SM clock it was taken
 at.  The HH trip kernel's ``launches`` adds (r)'s (``launches_by_path``)
@@ -1200,11 +1222,10 @@ def validation_path(dev, rows) -> None:
         f" the eager chain")
     if not same:
         raise RuntimeError("(p) the graph replay and the eager chain differ")
+    # the replay profiled (the eager chain's profile, ~17 s mostly the
+    # profiler's own, is a depth cut; PERF.md has its idle share)
     for label, call in (("graph replay", lambda: E.population_rollout_maes(
-            "nnf", pop, VAL_NAMES, TABLE1, truth, spans=spans, **VAL_KW)),
-            ("eager chain", lambda: E.population_rollout_maes(
-                "nnf", pop, VAL_NAMES, TABLE1, truth, spans=spans,
-                graph=False, **VAL_KW))):
+            "nnf", pop, VAL_NAMES, TABLE1, truth, spans=spans, **VAL_KW)),):
         secs, busy, trip = profiled(call, "trip_kernel")
         if busy <= 0.0:
             log(f"(p) {label} profiled: no device time in the trace; idle "
@@ -2118,6 +2139,9 @@ RK4_T_TOL = 1e-5      # its gates vs odeint and the closed form (the test's)
 HEAD_MS = 1200.0      # the blocked/stepwise comparison and the timed solves
                       # run to here (the 1,000 ms step edge included)
 PROFILE_MS = 30.0     # the profiled solves (each kernel is a trace event)
+# the depth cut of (t): the idle share is profiled on the HH case only;
+# d1's three profiled solves took ~30 s, nearly all of it the profiler's
+# own (PERF.md has their idle shares)
 # (u): neural-ODE training through the solve
 NODE_STEPS = (3, 2)   # Adam updates by RK4 (the first captures the
                       # interval's graphs) and by the adjoint
@@ -2225,6 +2249,8 @@ def method_path(dev) -> None:
                              **kw)[1].n_steps
             torch.cuda.synchronize()
             steps_s[m] = time.perf_counter() - t
+        if kind != "hh":   # the depth cut: d1's idle shares
+            continue
         idle = {m: idle_text(steps_s[m], profiled(
             lambda f=solvers[m][0]: f(fn, y0, short, args, **kw), "none")[1])
             for m in METHODS}
@@ -2941,6 +2967,438 @@ def real_data_path(dev, rows) -> None:
     log(f"(x) real-data phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# (y): the r-study replay drivers on stand-ins
+Y_TABLE2_RTOL = 1e-2  # table_2_torch's MAEs vs the JAX package's on the CPU
+# tests/_r_replay_reference.py (JAX on the CPU, its measurements recovered
+# in float64) on the same full-length stand-in: table 2 of out/r1, out/r2
+# and HH_CELL5_FIT
+Y_TABLE2_JAX = {
+    "Original": [0.06333296958290326, 0.10470309030120514, 0.03179408836711117,
+                 0.003240798101281684, 0.005441173600769743],
+    "NN-f": [0.08193854111296334, 0.10295668579783995, 0.05888069511844905,
+             0.04380078760932959, 0.08040300567418758],
+    "NN-d": [0.08541850112214179, 0.12429834745250987, 0.034115939999692244,
+             0.03505253467533, 0.047145267713559924],
+}
+Y_SHORT_RTOL = 1e-3   # each short-stand-in driver's MAEs against the
+                      # recordings, card vs CPU, relative
+Y_SUPP_TOL = CPU_ROW_EDGE_TOL   # the supplements' MAEs against the
+                      # noiseless truth (0.01-0.06 nA), card vs CPU: of the
+                      # case's current range, (v)'s rule for a row anywhere
+                      # (two f32 adaptive solves straddle the AP stand-in's
+                      # edges apart: 1.5e-3 relative, 4.6e-5 nA, on ap2hz)
+# the supplements' cases in (y): the AP2Hz stand-in (the +20 mV activation,
+# -100 mV deactivation and 300 ms activation-time-constant steps, 5-10 s
+# each, are a depth cut)
+Y_SUPP_CASES = ("ap2hz",)
+Y_CPU_THREADS = 2     # each CPU process's torch threads, beside the card's
+Y_SHORT_LIMIT_S = 600.0
+# the drivers run on the short two-sweep stand-ins (the depth cut of (y)),
+# card against CPU, in the groups the CPU runs as processes of their own
+# beside the card's run (figure 4-s reads figure 4's caches, figure 6 the
+# HH fit's of figures 4 and 5)
+Y_GROUPS = (("figure_4_torch", "figure_4_s_torch", "figure_5_torch",
+             "figure_6_torch"), ("table_s1_torch",),
+            ("figure_supplements_torch",))
+Y_SHORT = sum(Y_GROUPS, ())
+# table S1's architectures on the short stand-ins: two of the twelve
+# committed (5 x 200 and 5 x 10; the other ten are a depth cut)
+Y_S1_ARCHS = ("s00", "s03")
+
+
+def short_replay(device: str, ref: str, root: str, out: str,
+                 names=Y_SHORT) -> dict:
+    """The drivers ``names`` (of Y_SHORT) on ``device`` on the short two-sweep stand-ins
+    of tests/_r_study_standins.py (protorec patched, PR4_N to 16 x the
+    stand-in's Pr4 sweep so that "sweeps 1-3" is its sweep 1), the
+    checkout ``ref`` named by studies.REFDIR, the drivers' out/ under
+    ``root``, one --cached outdir ``out`` shared by all.  Returns {driver:
+    its result}."""
+    import importlib
+
+    sys.path[:0] = [os.path.join(ROOT, "scripts"), os.path.join(ROOT, "tests")]
+    import _r_study_standins as RS
+    from ionflux_torch import protorec
+    from ionflux_torch import studies as S
+
+    mods = {n: importlib.import_module(n) for n in names}
+    sweeps = {n: (v.size // p, p) for n, (v, p) in RS.SHORT.items()}
+    z = [(50.0, 140.0, -1.0, 1.0, "C0"), (160.0, 280.0, -1.0, 1.0, "C1")]
+    res = {}
+    with contextlib.ExitStack() as st:
+        for k, v in (("load_voltage", RS.short_voltage), ("SWEEPS", sweeps),
+                     ("PR3_N", RS.SHORT["pr3-cell5"][0].size),
+                     ("PR4_N", 16 * RS.SHORT["pr4-cell5"][1])):
+            st.enter_context(mock.patch.object(protorec, k, v))
+        st.enter_context(mock.patch.object(S, "REFDIR", ref))
+        for m in mods.values():
+            if hasattr(m, "ROOT"):
+                st.enter_context(mock.patch.object(m, "ROOT", root))
+            if hasattr(m, "zooms"):   # windows inside the stand-ins
+                st.enter_context(mock.patch.object(m, "zooms", lambda: {
+                    n: z for n in ("pr3", "pr4", "pr5", "sinewave", "aps")}))
+        if "figure_supplements_torch" in mods:
+            m = mods["figure_supplements_torch"]
+            cases = m.cases
+            st.enter_context(mock.patch.object(m, "cases", lambda dev: [
+                c for c in cases(dev) if c[0] in Y_SUPP_CASES]))
+        if "figure_4_s_torch" in mods:
+            st.enter_context(mock.patch.object(
+                mods["figure_4_s_torch"], "ZOOM",
+                ((50, 140), (-1, 1), (-2, 2))))
+        for name, m in mods.items():
+            t = time.perf_counter()
+            extra = ["--stored-pr4"] if name == "table_s1_torch" else []
+            res[name] = m.main(["--device", device, "--outdir", out,
+                                "--cached"] + extra)
+            log(f"(y) {name} on the short stand-ins ({device}): "
+                f"{time.perf_counter() - t:.1f} s")
+    return res
+
+
+def _short_main(device: str, ref: str, root: str, out: str, result: str,
+                *names) -> None:
+    """short_replay of ``names`` on ``device``, its results written as JSON
+    to result: (y)'s short-stand-in runs, in processes of their own beside
+    the full-length ones (the card's with TF32 off, the CPU's at
+    Y_CPU_THREADS threads)."""
+    sys.path.insert(0, ROOT)
+    if device == "cpu":
+        torch.set_num_threads(Y_CPU_THREADS)
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    res = short_replay(device, ref, root, out, names)
+    with open(result, "w") as fh:
+        json.dump(res, fh)
+
+
+def _leaves_of(x, path=""):
+    """(path, float) of every number in a nested result."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield from _leaves_of(v, f"{path}/{k}")
+    elif isinstance(x, (list, tuple)):
+        for k, v in enumerate(x):
+            yield from _leaves_of(v, f"{path}/{k}")
+    elif isinstance(x, (int, float, np.floating)) and not isinstance(x, bool):
+        yield path, float(x)
+
+
+def replay_standins(refdir: str) -> tuple[str, str]:
+    """(y)'s stand-ins: the replay files (tests/_r_replay_standins.py) in the
+    full-length checkout refdir (beside (x)'s caches), and a second
+    checkout of the short stand-ins and a drivers' root (out/ of symlinks
+    to the committed models, two of r1-tune's).  Returns (short checkout,
+    root)."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _r_replay_standins as RR
+    import _r_study_standins as RS
+    from ionflux_torch import protorec
+
+    RR.write_replay_files(refdir)
+    short = tempfile.mkdtemp(prefix="ionflux-short-")
+    sweeps = {n: (v.size // p, p) for n, (v, p) in RS.SHORT.items()}
+    with mock.patch.object(protorec, "load_voltage", RS.short_voltage), \
+            mock.patch.object(protorec, "SWEEPS", sweeps):
+        RS.write_r_caches(short)
+        RR.write_replay_files(short)
+    os.makedirs(os.path.join(short, "test-protocols"))
+    shutil.copy(os.path.join(refdir, "test-protocols", "ap2hz.csv"),
+                os.path.join(short, "test-protocols", "ap2hz.csv"))
+    root = tempfile.mkdtemp(prefix="ionflux-root-")
+    os.makedirs(os.path.join(root, "out", "r1-tune"))
+    for d in ("r1", "r2", "r1-bad", "s1", "s2") + tuple(
+            f"r1-tune/{a}" for a in Y_S1_ARCHS):
+        os.symlink(os.path.join(ROOT, "out", d), os.path.join(root, "out", d))
+    return short, root
+
+
+def r_replay_path(dev) -> None:
+    """(y) the r-study replay drivers (no kernel: the chained solve and the
+    device-paced odeint), on the stand-in checkout of (x) with the replay
+    files of tests/_r_replay_standins.py: ``table_2_torch.main`` at full
+    length in the default mode against the JAX package's CPU MAEs
+    (Y_TABLE2_JAX, 1e-2 relative); ``figure_7_torch.main`` at full length
+    on the recorded protocols (the a-trajectories' ranges, seconds); the
+    other drivers (Y_SHORT) on the short two-sweep stand-ins, in processes
+    of their own started with the phase, one on the card and Y_GROUPS on
+    the CPU, each MAE card against CPU within 1e-3 relative (the
+    supplements' within 1e-3 of the case's range)."""
+    import tempfile
+
+    from ionflux_torch import studies as S
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import figure_7_torch as F7
+    import table_2_torch as T2
+
+    t_phase = time.perf_counter()
+    short, root = replay_standins(S.REFDIR)
+    secs = time.perf_counter() - t_phase
+    log(f"(y) stand-in replay files written ({secs:.1f} s): state dicts of "
+        f"the committed models, traces of the HH fit; not the reference's "
+        f"files, not the paper's numbers")
+    tmp = tempfile.mkdtemp(prefix="ionflux-y-")
+    # the short stand-ins: one process on the card, one on the CPU for
+    # each of Y_GROUPS, all beside the full-length runs below
+    runs = [(str(dev), "card", Y_SHORT)] + [
+        ("cpu", f"cpu{k}", g) for k, g in enumerate(Y_GROUPS)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke as C; C._short_main(*sys.argv[2:])", ROOT, d,
+         short, root, os.path.join(tmp, name),
+         os.path.join(tmp, f"{name}.json"), *names], cwd=ROOT,
+        env=dict(os.environ, **({"CUDA_VISIBLE_DEVICES": ""} if d == "cpu"
+                                else {})),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for d, name, names in runs]
+    try:
+        # ---- table 2 at full length --------------------------------------
+        from ionflux_torch import eval as E
+        from ionflux_torch import realdata as RD
+
+        rec, long_, real = [], [], []
+        t = time.perf_counter()
+        with timed_calls(RD, "recover_measurements", rec), \
+                timed_calls(E, "simulate_long", long_), \
+                timed_calls(E, "solve_states_real", real):
+            table = T2.main(["--device", str(dev), "--outdir",
+                             os.path.join(tmp, "t2")])
+        secs = time.perf_counter() - t
+        log(f"(y) table 2's calls, seconds: recoveries "
+            f"{[round(c[0], 1) for c in rec]}; simulate_long "
+            f"{[(c[1][0], c[1][2], round(c[0], 1)) for c in long_]}; "
+            f"solve_states_real "
+            f"{[(c[1][0], c[1][2], round(c[0], 1)) for c in real]}")
+        worst = max(abs(g - w) / w for label, ws in Y_TABLE2_JAX.items()
+                    for g, w in zip(table[label], ws))
+        for label, vals in table.items():
+            want = " ".join(f"{x:.6f}" for x in Y_TABLE2_JAX[label])
+            log(f"(y) table 2 {label:8s} "
+                f"{' '.join(f'{x:.6f}' for x in vals)} (JAX on the CPU "
+                f"{want})")
+        log(f"(y) table_2_torch.main, full length: {secs:.1f} s; largest "
+            f"relative difference from JAX {worst:.3e} (tol {Y_TABLE2_RTOL})")
+        if not worst <= Y_TABLE2_RTOL:
+            raise RuntimeError(f"(y) table 2: {table} vs {Y_TABLE2_JAX}")
+
+        # ---- figure 7 at full length -------------------------------------
+        t = time.perf_counter()
+        traj = F7.main(["--device", str(dev), "--outdir",
+                        os.path.join(tmp, "f7")])
+        secs = time.perf_counter() - t
+        from ionflux_torch import protorec
+
+        for name, a in traj.items():
+            n = protorec.load_voltage(f"{name}-cell5")[0].size
+            if a.shape != (n,) or not np.isfinite(a).all():
+                raise RuntimeError(f"(y) figure 7 {name}: {a.shape}")
+        ranges = {k: (round(float(a.min()), 4), round(float(a.max()), 4))
+                  for k, a in traj.items()}
+        log(f"(y) figure_7_torch.main, full length: {secs:.1f} s; a ranges "
+            f"{ranges}")
+
+        # ---- the short stand-ins, card against CPU ------------------------
+        t = time.perf_counter()
+        logs = [p.communicate(timeout=Y_SHORT_LIMIT_S)[0] for p in procs]
+        secs = time.perf_counter() - t
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = {}
+    for (d, name, names), p, text in zip(runs, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"(y) the {d} run of {names} failed:\n"
+                               f"{text[-3000:]}")
+        for line in text.splitlines():
+            if "on the short stand-ins" in line:
+                log(line.split("] ", 1)[-1])
+        with open(os.path.join(tmp, f"{name}.json")) as fh:
+            res.setdefault(name == "card", {}).update(json.load(fh))
+    card, ref = res[True], res[False]
+    got, want = dict(_leaves_of(card)), dict(_leaves_of(ref))
+    if sorted(got) != sorted(want) or not got:
+        raise RuntimeError("(y) card and CPU results differ in keys")
+    log(f"(y) the short-stand-in drivers, a card process and "
+        f"{len(Y_GROUPS)} CPU processes started with the phase: {secs:.1f} s "
+        f"waited for them after the full-length runs; {len(got)} numbers; "
+        f"table S1 rows {list(card['table_s1_torch']['rows'])}")
+    # each number's error against its tolerance: relative for the MAEs
+    # against the recordings, of the case's range for the supplements'
+    scale, tol = {}, {}
+    for k, w in want.items():
+        case = k.split("/")[2]
+        if k.startswith("/figure_supplements_torch/"):
+            with np.load(os.path.join(tmp, "card", f"{case}-gt.npz")) as f:
+                scale[k], tol[k] = float(np.ptp(f["y"])), Y_SUPP_TOL
+        else:
+            scale[k], tol[k] = max(abs(w), 1e-12), Y_SHORT_RTOL
+    for name in Y_SHORT:
+        ks = [k for k in want if k.startswith(f"/{name}/")]
+        k = max(ks, key=lambda k: abs(got[k] - want[k]) / scale[k])
+        err = abs(got[k] - want[k]) / scale[k]
+        log(f"(y) {name}, card vs CPU: largest difference {err:.3e} "
+            f"{'of the range' if 'supplements' in name else 'relative'} at "
+            f"{k} (tol {tol[k]})")
+        if not err <= tol[k]:
+            raise RuntimeError(f"(y) card vs CPU: {k} {got[k]} vs "
+                               f"{want[k]}")
+    shutil.rmtree(tmp)
+    shutil.rmtree(short)
+    shutil.rmtree(root)
+    log(f"(y) r-study replay phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# (z): the sharded population path, two processes on the one card
+Z_RANKS = 2
+Z_TOL = 5e-3          # the gathered currents vs (c)'s unsharded launch
+                      # (tests/test_parallel.py: each shard's own step clock)
+Z_LIMIT_S = 300.0
+
+
+def _z_rank() -> dict:
+    """One rank of (z): ``simulate_population_sharded`` of (c)'s members on
+    the deactivation family over the 'pop' axis, B1 counted."""
+    from ionflux_torch import eval as E
+    from ionflux_torch import protocols as P
+    from ionflux_torch.models.registry import SYNTHETIC
+    from ionflux_torch.ops import fused_solve as F
+    from ionflux_torch.parallel import global_mesh
+    from ionflux_torch.utils.ckpt import params_from_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = global_mesh(("pop",))
+    dev = mesh.device
+    leaves = npz_leaves(os.path.join(ROOT, "out", "d1", "model.npz"))
+    pop = params_from_leaves(population(leaves, P_POP, 0), "nnf", dev)
+    deact = P.deactivation_family(0.1, device=dev)
+    ts = deact[0].times()
+    F.fused_nnf_popsweep_solve_ft.launches = 0
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    i = E.simulate_population_sharded("nnf", pop, deact, ts, SYNTHETIC,
+                                      mesh=mesh, trips=TRIPS)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t
+    i = i.cpu().numpy()
+    import hashlib
+
+    out = dict(rank=torch.distributed.get_rank(), device=str(dev),
+               secs=secs, launches=F.fused_nnf_popsweep_solve_ft.launches,
+               sha=hashlib.sha256(i.tobytes()).hexdigest(),
+               backend=torch.distributed.get_backend())
+    if out["rank"] == 0:
+        out["i"] = i
+    return out
+
+
+def sharded_path(dev, rows, fwd) -> None:
+    """(z) the sharded population path: ``simulate_population_sharded`` of
+    (c)'s 64 perturbed d1 members on the deactivation family over Z_RANKS
+    gloo processes on the one card (32 members a rank, one B1 launch each,
+    no collective in the solve, the currents gathered through the host);
+    each rank's shard against one process's ``simulate_population`` of the
+    same members (bit for bit; comparison launches), the gathered currents
+    against (c)'s unsharded launch (5e-3) and every rank's copy of them
+    equal; and ``entry.dryrun_multichip(2)`` on the card, started with the
+    sharded ranks.  B1's launches in the ranks join ``launches_by_path``."""
+    import threading
+
+    from ionflux_torch.entry import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    # dryrun_multichip's two processes start with the sharded ranks: four
+    # processes on the card, their start-up overlapped
+    dry = {}
+
+    def dryrun():
+        try:
+            dry["out"] = dryrun_multichip(2)
+        except BaseException as exc:   # raised again by the main thread
+            dry["error"] = exc
+        dry["secs"] = time.perf_counter() - t_phase
+
+    worker = threading.Thread(target=dryrun)
+    worker.start()
+    try:
+        sharded_checks(dev, rows, fwd, t_phase)
+    finally:
+        worker.join()   # its own launcher kills its ranks at its limit
+    if "error" in dry:
+        raise dry["error"]
+    log(f"(z) dryrun_multichip(2) on {dry['out']['device']}, beside the "
+        f"sharded ranks: {dry['secs']:.1f} s from the phase's start, loss "
+        f"{dry['out']['loss']:.4e}, pop losses "
+        f"{dry['out']['pop_losses'].tolist()}, popsweep launches "
+        f"{dry['out']['popsweep_launches']} (rank 0)")
+    if (dry["out"]["popsweep_launches"] != 1
+            or not dry["out"]["device"].startswith("cuda")):
+        raise RuntimeError(f"(z) dryrun_multichip: {dry['out']['device']}, "
+                           f"{dry['out']['popsweep_launches']} launches")
+    log(f"(z) sharded population phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def sharded_checks(dev, rows, fwd, t_phase: float) -> None:
+    """(z)'s sharded ranks and their checks (``sharded_path``)."""
+    import hashlib
+
+    from ionflux_torch import eval as E
+    from ionflux_torch import protocols as P
+    from ionflux_torch.models.registry import SYNTHETIC
+    from ionflux_torch.parallel import run_processes
+    from ionflux_torch.utils.ckpt import params_from_leaves
+
+    ranks = run_processes(_z_rank, Z_RANKS, timeout=Z_LIMIT_S)
+    secs = time.perf_counter() - t_phase
+    i = ranks[0]["i"]
+    shas = {r["sha"] for r in ranks}
+    per = P_POP // Z_RANKS
+    launches = [r["launches"] for r in ranks]
+    log(f"(z) {Z_RANKS} ranks ({ranks[0]['backend']}, "
+        f"{[r['device'] for r in ranks]}): {secs:.1f} s with the spawn; "
+        f"the sharded call {[round(r['secs'], 3) for r in ranks]} s a rank "
+        f"(beside the dry run's ranks); "
+        f"B1 launches {launches} a rank; currents {i.shape}, every rank's "
+        f"copy {'equal' if len(shas) == 1 else 'DIFFERENT'}")
+    if (len(shas) != 1 or hashlib.sha256(i.tobytes()).hexdigest() not in shas
+            or launches != [1] * Z_RANKS or i.shape != (P_POP, 9, 100001)
+            or not np.isfinite(i).all()):
+        raise RuntimeError(f"(z) sharded ranks: {launches}, {shas}")
+    leaves = npz_leaves(os.path.join(ROOT, "out", "d1", "model.npz"))
+    pop = population(leaves, P_POP, 0)
+    deact = P.deactivation_family(0.1, device=dev)
+    ts = deact[0].times()
+    for r in range(Z_RANKS):
+        shard = [x[r * per:(r + 1) * per] for x in pop[:-8]] + pop[-8:]
+        alone = E.simulate_population(
+            "nnf", params_from_leaves(shard, "nnf", dev), deact, ts,
+            SYNTHETIC, trips=TRIPS).cpu().numpy()
+        same = np.array_equal(alone, i[r * per:(r + 1) * per])
+        log(f"(z) rank {r}'s {per} members against one process's "
+            f"simulate_population of them: "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise RuntimeError(f"(z) rank {r}'s shard differs")
+    d = float(np.abs(i - fwd["i_pop"].cpu().numpy()).max())
+    log(f"(z) gathered vs (c)'s unsharded launch: max |dI| {d:.3e} (tol "
+        f"{Z_TOL}; each shard runs its own step clock)")
+    if not d <= Z_TOL:
+        raise RuntimeError(f"(z) sharded vs unsharded {d}")
+
+    n = sum(launches)
+    for row in rows:
+        if row["name"] == "fused_nnf_popsweep_solve_ft":
+            row.setdefault("launches_by_path", {
+                "earlier phases": row["launches"]})[
+                "sharded path (z), all ranks"] = n
+            row["launches"] += n
+            row["sharded_ms_per_rank"] = [r["secs"] * 1e3 for r in ranks]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2998,9 +3456,15 @@ def main() -> int:
     log(f"d-study replay (w) done at {time.perf_counter() - t_start:.0f} s")
     real_data_path(dev, rows)
     log(f"real-data path (x) done at {time.perf_counter() - t_start:.0f} s")
+    r_replay_path(dev)
+    log(f"r-study replay (y) done at {time.perf_counter() - t_start:.0f} s")
     shutil.rmtree(refdir)
+    sharded_path(dev, rows, fwd)
+    log(f"sharded population path (z) done at "
+        f"{time.perf_counter() - t_start:.0f} s")
 
     # ---- (e) results -------------------------------------------------------
+    log(f"(e) every phase done at {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@
   ``population_rollout_maes`` do it on the recorded protocols, chained over
   segments (``ops/fused_solve.fused_nnf_popsweep_chained``): the
   checkpoint-validation workload.  On the card the rollout MAEs' chain is
-  one CUDA graph.
+  one CUDA graph.  ``simulate_population_sharded`` shards the members over
+  a mesh of processes (``parallel``), one popsweep launch a rank.
 
 Everything follows the device of the tensors it is given; where no
 argument carries a tensor, ``device`` says where to run (the card unless
@@ -223,6 +224,44 @@ def _population_currents(nets, rg, hh, b: P.Protocol, ts, c: Constants, *,
         trips=kw.get("trips", 4096), base_hh=hh, cull=kw.get("cull", True),
         mxu_bf16=kw.get("mxu_bf16", False))                  # [P, Q, T, 2]
     return gate_current(ys, _family_voltage(b, ts)[None], c)
+
+
+def simulate_population_sharded(kind: str, pop_params,
+                                protos: list[P.Protocol], ts: torch.Tensor,
+                                c: Constants, mesh=None, axis: str = "pop",
+                                **kw) -> torch.Tensor:
+    """``simulate_population`` with the member axis sharded over a mesh of
+    processes (``parallel.make_mesh``): each rank runs its own popsweep
+    launch on its member shard, no collective enters the solve, and the
+    currents [P, Q, T] are gathered on every rank.  P must divide evenly
+    over the axis.  Every rank passes the whole population; mesh=None is
+    the mesh of this process alone."""
+    from ionflux_torch.parallel.mesh import make_mesh, sharded_map
+
+    if len(protos) > POPSWEEP_SPLIT_ROWS:
+        return torch.cat(
+            [simulate_population_sharded(kind, pop_params,
+                                         protos[i:i + POPSWEEP_SPLIT_ROWS],
+                                         ts, c, mesh=mesh, axis=axis, **kw)
+             for i in range(0, len(protos), POPSWEEP_SPLIT_ROWS)], dim=1)
+    nets, rg, hh = _pop_split(kind, pop_params)
+    if mesh is None:
+        mesh = make_mesh(axes=(axis,), device=nets[0][0].device)
+    n_dev = mesh.shape[axis]
+    p_mem = nets[0][0].shape[0]
+    if p_mem % n_dev:
+        raise ValueError(f"population {p_mem} does not divide over the "
+                         f"{n_dev}-rank '{axis}' mesh axis")
+    b = P.Protocol(*(x.to(mesh.device) for x in P.stack(protos)))
+    ts = ts.to(mesh.device)
+    t0f, dtf, t_endf = float(protos[0].t0), float(protos[0].dt), float(
+        ts[-1])
+
+    def local(nets_shard):
+        return _population_currents(nets_shard, rg, hh, b, ts, c, t0f=t0f,
+                                    dtf=dtf, t_endf=t_endf, **kw)
+
+    return sharded_map(mesh, axis, local)(nets)
 
 
 # ---------------------------------------------------------------------------

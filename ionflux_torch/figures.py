@@ -1,13 +1,15 @@
-"""Figure and table replay helpers (counterpart of ``ionflux/figures.py``,
-the pieces the d-study and s-study drivers call).
+"""Figure and table replay helpers (counterpart of ``ionflux/figures.py``:
+what the d-, s- and r-study drivers call).
 
-The drivers (``scripts/table_1_torch.py``, ``figure_*_torch.py``) simulate
+The drivers (``scripts/table_*_torch.py``, ``figure_*_torch.py``) simulate
 the ground truth and each model per protocol, cache the traces as npz, and
 lay out multi-panel comparisons with zoom panels.  The numeric helpers
-(``load_d_models``, ``load_s_models``, ``cached_sim``, ``mae_row``,
-``latex_table``, the style tables) need no plotting library; matplotlib is
-imported inside the plotting functions only, and one of them called without
-it raises ``ImportError``.
+(``load_d_models``, ``load_d_models_reference``, ``load_s_models``,
+``load_r_models``, ``cached_sim``, ``mae_row``, ``latex_table``,
+``dense_measurement``, the style tables) need no plotting library;
+matplotlib is imported inside the plotting functions only, and one of them
+called without it raises ``ImportError``.  The reference's archived
+weights are read from ``IONFLUX_REFERENCE`` when a loader runs.
 """
 
 from __future__ import annotations
@@ -60,14 +62,28 @@ def load_d_models(out_root: str, device=None) -> dict:
     return models
 
 
-def _reference_net(path: str, device):
-    """An MLP from a reference ``model-state-dict.pt`` (keys net.<i>.weight
-    [out, in], net.<i>.bias)."""
+def _reference_file(refdir: str | None, rel: str) -> str:
+    """The path of ``rel`` in the reference checkout ``refdir`` (default
+    ``IONFLUX_REFERENCE``, read now); FileNotFoundError naming the file
+    where it is absent."""
+    if refdir is None:
+        from ionflux_torch.studies import REFDIR as refdir
+    path = os.path.join(refdir or "", rel)
+    if not refdir or not os.path.exists(path):
+        raise FileNotFoundError(
+            f"the reference's {rel} is not there (IONFLUX_REFERENCE="
+            f"{refdir!r})")
+    return path
+
+
+def _reference_net(path: str, device, key: str | None = None):
+    """An MLP from a reference state dict (keys net.<i>.weight [out, in],
+    net.<i>.bias), or from the dict under ``key`` of a checkpoint."""
     from ionflux_torch.models.nn import MLP
 
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"reference checkpoint {path} is not there")
     sd = torch.load(path, map_location="cpu", weights_only=False)
+    if key is not None:
+        sd = sd[key]
     idxs = sorted({int(k.split(".")[1]) for k in sd if k.startswith("net.")})
     dev = resolve_device(device)
     return MLP([(torch.as_tensor(np.ascontiguousarray(
@@ -75,6 +91,27 @@ def _reference_net(path: str, device):
         device=dev), torch.as_tensor(np.asarray(sd[f"net.{i}.bias"]),
                                      dtype=torch.float32, device=dev))
         for i in idxs])
+
+
+def load_d_models_reference(refdir: str | None = None, device=None) -> dict:
+    """The d-study trio {label: (kind, params, style)} from the reference's
+    archived state dicts (``d1/``, ``d2/model-state-dict.pt`` under refdir,
+    default ``IONFLUX_REFERENCE``): the d0-fitted candidate, NN-f on d0's
+    initial r-gate, NN-d on HH_D2_BASE.  FileNotFoundError naming the file
+    where one is absent."""
+    from ionflux_torch.models.nn import NNdParams, NNfParams
+    from ionflux_torch.models.registry import (HH_D0_FIT, HH_D0_INIT,
+                                               HH_D2_BASE)
+
+    def net(study):
+        return _reference_net(_reference_file(
+            refdir, f"{study}/model-state-dict.pt"), device)
+
+    return {
+        "Original": ("hh", HH_D0_FIT, "C2--"),
+        "NN-f": ("nnf", NNfParams(net=net("d1"), rgate=HH_D0_INIT), "C0--"),
+        "NN-d": ("nnd", NNdParams(net=net("d2"), hh=HH_D2_BASE), "C1--"),
+    }
 
 
 def load_s_models(out_root: str | None = None, refdir: str | None = None,
@@ -88,13 +125,9 @@ def load_s_models(out_root: str | None = None, refdir: str | None = None,
     from ionflux_torch.models.registry import HH_B06
 
     if out_root is None:
-        if refdir is None:
-            from ionflux_torch.studies import REFDIR as refdir
-        refdir = refdir or ""
-
         def net(study):
-            return _reference_net(
-                os.path.join(refdir, study, "model-state-dict.pt"), device)
+            return _reference_net(_reference_file(
+                refdir, f"{study}/model-state-dict.pt"), device)
 
         return {
             "Original": ("hh", HH_B06, "C2--"),
@@ -355,6 +388,77 @@ def fit_composition_cols(path, columns, ds=20, figsize=(11, 5)):
     print(f"wrote {path}")
 
 
+def fit_composition_permodel_zoom(path, t, v, data, preds, zoom, zoom_ylim,
+                                  facecolor, ylim=None, ds=20,
+                                  figsize=(11, 5)):
+    """Figure 4-s's layout: one protocol's voltage panel over its current
+    panel over a row of zoom panels, one a model, all on the same window,
+    each overlaying the data with that model's prediction; arrow scale
+    bars on the first zoom only.  v, data and each pred are [n_sweeps, T];
+    zoom = (t0, t1), zoom_ylim = (y0, y1)."""
+    plt = _pyplot()
+    from matplotlib.patches import PathPatch
+    from matplotlib.path import Path as MplPath
+
+    _sns_theme(plt)
+    plt.rcParams["axes.facecolor"] = "#E4EDE4"
+    fig = plt.figure(figsize=figsize)
+    grid = plt.GridSpec(4 + 1 + 7 + 5 + 14, 3, hspace=0.0, wspace=0.0)
+    axv = fig.add_subplot(grid[:4, :3])
+    axc = fig.add_subplot(grid[5:12, :3])
+    plot_sweep_panels(axv, axc, t, v, data, preds, ds)
+    axv.set_ylabel("Voltage\n(mV)", fontsize=12)
+    axc.set_ylabel("Current\n(nA)", fontsize=12)
+    axc.set_xlabel("Time (ms)", fontsize=12)
+    if ylim is not None:
+        axc.set_ylim(list(ylim))
+
+    t0, t1 = zoom
+    y0, y1 = zoom_ylim
+    i0, i1 = int(np.searchsorted(t, t0)), int(np.searchsorted(t, t1))
+    tt = t[i0:i1:ds]
+    codes = [MplPath.MOVETO] + [MplPath.LINETO] * 3 + [MplPath.CLOSEPOLY]
+    verts = np.array([(tt[0], y0), (tt[0], y1), (tt[-1], y1), (tt[-1], y0),
+                      (0, 0)], float)
+    axc.add_patch(PathPatch(MplPath(verts, codes), facecolor=facecolor,
+                            edgecolor=facecolor, alpha=0.25))
+    for im, (label, y) in enumerate(preds.items()):
+        axz = fig.add_subplot(grid[-14:, im:im + 1])
+        fmt, color = MODEL_STYLES.get(label, ("--", "C3"))
+        for i in range(data.shape[0]):
+            axz.plot(tt, data[i][i0:i1:ds], c="#7f7f7f")
+            axz.plot(tt, y[i][i0:i1:ds], fmt, c=color, lw=1.0)
+        axz.set_xlim([tt[0], tt[-1]])
+        axz.set_ylim([y0, y1])
+        axz.set_xticks([])
+        axz.set_yticks([])
+        axz.set_xticklabels([])
+        axz.set_yticklabels([])
+        axz.add_patch(PathPatch(MplPath(verts, codes), facecolor=facecolor,
+                                edgecolor=None, alpha=0.25))
+        if im == 0:
+            axz.set_ylabel("Zoom in", fontsize=12)
+            for (x, yy, dx, dy) in [(1, -0.05, -1, 0), (0, -0.05, 1, 0)]:
+                axz.arrow(x, yy, dx, dy, length_includes_head=True,
+                          head_width=0.03, head_length=0.05, clip_on=False,
+                          fc="k", ec="k", transform=axz.transAxes)
+            axz.text(0.5, -0.15, "%s ms" % np.around(t1 - t0, decimals=0),
+                     transform=axz.transAxes, ha="center", va="center")
+            for (x, yy, dx, dy) in [(-0.05, 1, 0, -1), (-0.05, 0, 0, 1)]:
+                axz.arrow(x, yy, dx, dy, length_includes_head=True,
+                          head_width=0.03, head_length=0.05, clip_on=False,
+                          fc="k", ec="k", transform=axz.transAxes)
+            axz.text(-0.15, 0.5, "%s nA" % np.around(y1 - y0, decimals=1),
+                     rotation=90, transform=axz.transAxes, ha="center",
+                     va="center")
+    axc.legend(loc="lower left", bbox_to_anchor=(0.0, 1.7), ncol=4,
+               columnspacing=4, bbox_transform=axc.transAxes)
+    fig.align_ylabels([axv, axc])
+    fig.savefig(path, pad_inches=0.02, dpi=300, bbox_inches="tight")
+    plt.close(fig)
+    print(f"wrote {path}")
+
+
 def fit_composition_rows(path, top_columns, rows, ds=20, figsize=(11, 13.5)):
     """Figure 3's layout: a top row of sweep columns (no zooms), then
     full-width single-trace rows, each with its own row of zooms."""
@@ -494,3 +598,55 @@ def phase_portrait_figure(path, cases, cache_dir, cached=False, ds=10,
     fig.savefig(path, pad_inches=0.02, dpi=200, bbox_inches="tight")
     plt.close(fig)
     print(f"wrote {path}")
+
+
+def load_r_models(out_root: str, oracle: bool = False,
+                  refdir: str | None = None, device=None) -> list:
+    """The r-study trio [(label, kind, params, constants)]: the cell-5 HH
+    fit ("Original", CELL5_RAW), r1's NN-f (CELL5_R1) and r2's NN-d
+    (CELL5_R2), each (g, E) as the reference's table 2 sets them.  The
+    nets are the trained best checkpoints under out_root (best-model.npz,
+    else model.npz), or with ``oracle`` the reference's archived ones under
+    refdir (default ``IONFLUX_REFERENCE``): r1/best-model-checkpoint-2.pt
+    (its "state_dict") and r2/model-state-dict-2.pt (FileNotFoundError
+    naming the file where absent)."""
+    from ionflux_torch.models.nn import NNdParams, NNfParams
+    from ionflux_torch.models.registry import (CELL5_R1, CELL5_R2,
+                                               CELL5_RAW, HH_CELL5_FIT,
+                                               HH_CELL5_INIT)
+    from ionflux_torch.rstudies import R1, R2
+    from ionflux_torch.utils.ckpt import load_pytree
+
+    if oracle:
+        r1 = NNfParams(net=_reference_net(_reference_file(
+            refdir, "r1/best-model-checkpoint-2.pt"), device, "state_dict"),
+            rgate=HH_CELL5_INIT)
+        r2 = NNdParams(net=_reference_net(_reference_file(
+            refdir, "r2/model-state-dict-2.pt"), device), hh=HH_CELL5_FIT)
+    else:
+        out = []
+        for spec in (R1, R2):
+            path = os.path.join(out_root, spec.name, "best-model.npz")
+            if not os.path.exists(path):
+                path = os.path.join(out_root, spec.name, "model.npz")
+            out.append(load_pytree(path, spec.model_kind, device))
+        r1, r2 = out
+    return [("Original", "hh", HH_CELL5_FIT, CELL5_RAW),
+            ("NN-f", "nnf", r1, CELL5_R1),
+            ("NN-d", "nnd", r2, CELL5_R2)]
+
+
+def dense_measurement(idx, vals, n, max_gap: int = 30):
+    """A recovered measurement on the retained-sample lattice (every 7th
+    sample inside the capacitance-masked runs) as a dense trace of n
+    samples for plotting: interpolated inside runs, NaN across the mask's
+    gaps (more than max_gap samples) and outside the lattice, so
+    matplotlib breaks the line there."""
+    idx = np.asarray(idx, np.int64)
+    d = np.interp(np.arange(n), idx, np.asarray(vals, np.float64))
+    for a, b in zip(idx[:-1], idx[1:]):
+        if b - a > max_gap:
+            d[a + 1:b] = np.nan
+    d[:idx[0]] = np.nan
+    d[idx[-1] + 1:] = np.nan
+    return d

@@ -17,6 +17,10 @@ the reference package.
 generations, each on the card one replay of a CUDA graph (draw, clip,
 objective, ranking, the mean / path / covariance / step-size updates), with
 one host read a chunk (the stop scalars) made while the next chunk runs.
+
+``shard_objective`` spreads a population objective over a mesh of
+processes (``parallel``): each rank evaluates its members, the losses are
+all-gathered.
 """
 
 from __future__ import annotations
@@ -392,6 +396,51 @@ def cmaes_onchip(
                        fx=float(best_f), iterations=it,
                        evaluations=it * lam, history=history,
                        hit_max_iterations=hit_max)
+
+
+def shard_objective(mesh, per_member_fn: Callable | None = None,
+                    popsize: int = 0, n_params: int = 0,
+                    batch_fn: Callable | None = None):
+    """A population objective with its members sharded along the mesh's
+    first axis (``parallel.make_mesh`` / ``global_mesh``): each rank
+    evaluates its shard on its device and the losses are all-gathered, so
+    every rank's CMA-ES sees the same ranking.  popsize must divide by the
+    axis size; a population that is not a multiple of popsize is padded by
+    repeating its last member.
+
+    Two evaluation forms, exactly one given:
+    - per_member_fn: (params [n_params]) -> scalar loss, mapped over the
+      rank's members;
+    - batch_fn: (params [B, n_params]) -> [B] losses, the rank's shard in
+      one call (e.g. a lockstep ``odeint_batched`` objective).
+
+    Returns objective(xs [n, n_params]) -> float64 losses [n]; the members
+    go to the device as float32."""
+    from ionflux_torch.parallel.mesh import sharded_map
+
+    axis = mesh.axis_names[0]
+    if (per_member_fn is None) == (batch_fn is None):
+        raise ValueError("pass exactly one of per_member_fn / batch_fn")
+    if popsize % mesh.devices.shape[0]:
+        raise ValueError(
+            f"popsize {popsize} must divide by the '{axis}' axis size "
+            f"{mesh.devices.shape[0]}")
+    if batch_fn is None:
+        def batch_fn(xs):
+            return torch.stack([per_member_fn(x) for x in xs])
+    fn = sharded_map(mesh, axis, batch_fn)
+
+    def objective(xs: np.ndarray) -> np.ndarray:
+        xs = np.asarray(xs)
+        n = xs.shape[0]
+        pad = (-n) % popsize
+        if pad:
+            xs = np.concatenate([xs, np.repeat(xs[-1:], pad, axis=0)])
+        out = fn(torch.as_tensor(np.asarray(xs, np.float32),
+                                 device=mesh.device))
+        return out.detach().cpu().numpy().astype(np.float64)[:n]
+
+    return objective
 
 
 def fmin(f: Callable[[np.ndarray], float], x0, sigma0=None, max_iter=None,

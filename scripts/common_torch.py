@@ -163,3 +163,80 @@ def real_study_main(spec, description: str, argv=None):
             return R.predict_real_study(spec, out, device=args.device)
         return R.run_real_study(spec, out, iters=args.iters,
                                 smoothi=args.smoothi, device=args.device)
+
+
+def drawing(path: str) -> bool:
+    """True where matplotlib is installed; else say that ``path`` is not
+    drawn (the numbers are computed either way)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(f"matplotlib is not installed: {path} not drawn")
+        return False
+    return True
+
+
+def r_measurements(names, device) -> dict:
+    """The measured cell-5 currents {name: (t_local_ms, i)} that the
+    r-study replay scores against, recovered from the reference's surface
+    caches under ``IONFLUX_REFERENCE`` (``rstudies.refdir``): pr3 and pr5
+    from r1/, pr4 from r1-bad/ (its Pr3 + Pr4 cache); only those named."""
+    from ionflux_torch import rstudies as R
+    from ionflux_torch.models.registry import (CELL5_R1, CELL5_R1BAD,
+                                               HH_CELL5_INIT, HH_R1BAD_INIT)
+    from ionflux_torch.realdata import recover_measurements
+
+    ref = R.refdir()
+    out = {}
+    if {"pr3", "pr5"} & set(names):
+        out.update(recover_measurements(f"{ref}/r1", CELL5_R1, HH_CELL5_INIT,
+                                        device=device))
+    if "pr4" in names:
+        out["pr4"] = recover_measurements(
+            f"{ref}/r1-bad", CELL5_R1BAD, HH_R1BAD_INIT,
+            protocols=("pr3", "pr4"), n_points=30, device=device)["pr4"]
+    return {n: out[n] for n in names}
+
+
+def lattice(tl) -> "np.ndarray":
+    """The sample indices of a recovered measurement's local times."""
+    import numpy as np
+
+    from ionflux_torch import protorec
+
+    return np.round(np.asarray(tl) / protorec.DT_MS).astype(np.int64)
+
+
+def real_sim(out: str | None, cached: bool, device):
+    """sim(cache_name, kind, params, name, c) -> a model's current (numpy
+    float64) on a recorded cell-5 protocol (``name``: pr3, ..., aps): the
+    multi-sweep recordings by ``eval.simulate_long``, the others by
+    ``solve_states_real`` and the gate current.  With ``out``, each trace
+    is cached as <out>/<cache_name>.npz and ``cached`` reads it back."""
+    import numpy as np
+    import torch
+
+    from ionflux_torch import protorec
+    from ionflux_torch.eval import simulate_long, solve_states_real
+    from ionflux_torch.observe import gate_current
+
+    def sim(cache_name, kind, params, name, c):
+        path = out and os.path.join(out, f"{cache_name}.npz")
+        if cached and path and os.path.exists(path):
+            with np.load(path) as z:
+                return z["y"]
+        rec = f"{name}-cell5"
+        if rec in protorec.SWEEPS:
+            y = simulate_long(kind, params, rec, c, device=device)
+        else:
+            v, _ = protorec.load_voltage(rec)
+            y = gate_current(solve_states_real(kind, params, rec,
+                                               device=device),
+                             torch.as_tensor(v, device=device).to(
+                                 torch.float32), c)
+        y = y.double().cpu().numpy()
+        if path:
+            np.savez(path, y=y)
+        return y
+
+    return sim

@@ -9,8 +9,9 @@ supplement (HH ground truth, the s1 / s2 models from out/s1, out/s2).
 
 writes fig2.png (fig2-s.png) to <outdir> (default out/figure-2-torch,
 figure-2-s-torch; matplotlib), every trace cached there as npz; returns
-{protocol: {model: MAE}}.  ``--oracle`` needs the reference's archived
-checkpoints."""
+{protocol: {model: MAE}}.  ``--oracle`` draws the reference's archived
+checkpoints (``d1/``, ``d2/`` or ``s1/``, ``s2/model-state-dict.pt`` under
+``IONFLUX_REFERENCE``; FileNotFoundError naming the file where absent)."""
 
 import os
 import sys
@@ -24,7 +25,9 @@ from table_1_torch import noisy  # noqa: E402
 
 def models_for(args, device):
     """The trio to draw and the ground truth (kind, params)."""
-    from ionflux_torch.figures import load_d_models, load_s_models
+    from ionflux_torch.figures import (load_d_models,
+                                       load_d_models_reference,
+                                       load_s_models)
     from ionflux_torch.models.registry import HH_B06, MARKOV_B06
 
     if args.s:
@@ -32,13 +35,7 @@ def models_for(args, device):
                               else os.path.join(ROOT, "out"), device=device),
                 "hh", HH_B06)
     if args.oracle:
-        from ionflux_torch import studies
-
-        raise FileNotFoundError(
-            "--oracle needs the reference's archived checkpoints "
-            "(d1/model-state-dict.pt, d2/model-state-dict.pt under "
-            f"IONFLUX_REFERENCE={studies.REFDIR!r}), which the port does not "
-            "read yet")
+        return load_d_models_reference(device=device), "markov", MARKOV_B06
     return load_d_models(os.path.join(ROOT, "out"), device), "markov", \
         MARKOV_B06
 

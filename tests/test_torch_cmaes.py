@@ -83,10 +83,16 @@ def test_default_popsize_and_what_is_ported():
     assert TC._default_popsize(4) == 8
     assert TC.CMAESResult.__dataclass_fields__.keys() == (
         JC.CMAESResult.__dataclass_fields__.keys())
-    # cmaes_onchip is ported (tests/test_torch_cmaes_onchip.py);
-    # shard_objective waits for torch.distributed
-    assert hasattr(TC, "cmaes_onchip") and not hasattr(
-        TC, "shard_objective")
+    # cmaes_onchip is ported (tests/test_torch_cmaes_onchip.py), and
+    # shard_objective on torch.distributed (tests/test_torch_multiproc.py),
+    # with JAX's signature
+    import inspect
+
+    assert hasattr(TC, "cmaes_onchip") and hasattr(TC, "shard_objective")
+    sig_t = inspect.signature(TC.shard_objective).parameters
+    sig_j = inspect.signature(JC.shard_objective).parameters
+    assert [(k, v.default) for k, v in sig_t.items()] == [
+        (k, v.default) for k, v in sig_j.items()]
 
 
 @pytest.mark.parametrize("sigma0", [None, 0.3])

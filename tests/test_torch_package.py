@@ -44,8 +44,10 @@ def _protos(levels=(-40.0, 20.0), device="cpu"):
 
 
 def test_port_imports_neither_jax_nor_ionflux():
-    """Every module of the port, chip_smoke.py and the port's scripts,
-    imported in a fresh interpreter: neither jax nor ionflux is loaded."""
+    """Every module of the port, chip_smoke.py, every scripts/*_torch.py
+    and the stand-in writer and rank functions of the replay and
+    multi-process tests, imported in a fresh interpreter: neither jax nor
+    ionflux (nor matplotlib) is loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ionflux_torch\n"
@@ -60,19 +62,20 @@ def test_port_imports_neither_jax_nor_ionflux():
         "          'ops.smoothing', 'solver.batched', 'solver.analytic',\n"
         "          'native', 'ops.spline', 'ops.sym_eig', 'solver.fixed',\n"
         "          'solver.adams', 'solver.vcabm', 'solver.implicit',\n"
-        "          'solver.adjoint', 'figures', 'utils.timing'):\n"
+        "          'solver.adjoint', 'figures', 'utils.timing',\n"
+        "          'parallel', 'parallel.mesh', 'parallel.multihost',\n"
+        "          'entry'):\n"
         "    assert 'ionflux_torch.' + n in names, n\n"
-        "import chip_smoke\n"
-        "sys.path.insert(0, 'scripts')\n"
-        "import train_d0_torch, probe_mosaic_bias_fault_torch\n"
-        "import time_forward_torch, probe_ring_pass_torch, time_probe_torch\n"
-        "import probe_cluster_launch_torch, probe_validation_chain_torch\n"
-        "import train_d1_torch, train_d2_torch, common_torch\n"
-        "import probe_chain_vs_plain_torch, train_neural_ode_torch\n"
-        "import probe_solve_capture_torch, time_neural_ode_torch\n"
-        "import train_s1_torch, train_s2_torch, table_1_torch\n"
-        "import figure_0_s_torch, figure_1_torch, figure_2_torch\n"
-        "import figure_3_torch\n"
+        "import chip_smoke, glob, os\n"
+        "sys.path[:0] = ['scripts', 'tests']\n"
+        "scripts = sorted(os.path.basename(f)[:-3]\n"
+        "                 for f in glob.glob('scripts/*_torch.py'))\n"
+        "for n in scripts + ['_r_replay_standins', '_multiproc_workers']:\n"
+        "    importlib.import_module(n)\n"
+        "assert {'table_2_torch', 'table_s1_torch', 'figure_4_torch',\n"
+        "        'figure_4_s_torch', 'figure_5_torch', 'figure_6_torch',\n"
+        "        'figure_7_torch', 'figure_supplements_torch',\n"
+        "        'train_d0_torch', 'table_1_torch'} <= set(scripts)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ionflux', 'matplotlib'))\n"
         "assert not bad, bad\n"
