@@ -1,0 +1,7 @@
+"""The device's idle share in validation calls, from the traced run
+(benchmark/harness.py::idle_share)."""
+
+from benchmark.harness import idle_share as read  # noqa: F401
+
+DRIVERS = ("validate",)
+UNIT = "%"
