@@ -52,6 +52,7 @@ from ionflux_torch.ops.fused_solve import (
 )
 from ionflux_torch.solver import (odeint, odeint_adams, odeint_chained,
                                   odeint_rosenbrock, odeint_vcabm)
+from ionflux_torch.utils.timing import count, span
 
 _RHS = {"hh": hh_rhs, "markov": markov_rhs, "nnf": nnf_rhs, "nnd": nnd_rhs,
         "gta": gt_a_rhs}
@@ -485,7 +486,9 @@ def _popsweep_segment_reduce(nets, vknots, y0, vseg, tseg, wseg, acc, c, *,
     """One segment of the validation chain, all on the device: the popsweep
     launch, its dense output a chunk at a time, and the weighted
     |pred - truth| sums added to acc [P, Q_req].  Returns (acc, the final
-    state [P, Q_req, 2] for the next segment, the survival mask)."""
+    state [P, Q_req, 2] for the next segment, the survival mask, the
+    launch's executed and accepted trips as two int32 scalars on the
+    device)."""
     recs = fused_nnf_popsweep_solve_ft(
         nets, rg, vknots, _time_on(vknots.device, t_end), proto_dt=dt,
         t_end=t_end, rtol=rtol, atol=atol, trips=trips, base_hh=hh, y0=y0,
@@ -504,7 +507,7 @@ def _popsweep_segment_reduce(nets, vknots, y0, vseg, tseg, wseg, acc, c, *,
                           torch.zeros_like(ii))
         sums.append(err.sum(dim=-1))
     return (acc + torch.stack(sums).sum(dim=0), recs.final_state(t_end),
-            recs.mask[:, :q_req])
+            recs.mask[:, :q_req], [recs.n_valid, recs.n_acc])
 
 
 # The rollout-MAE chains captured as CUDA graphs, by their shapes and
@@ -534,72 +537,96 @@ def population_rollout_maes(kind: str, pop_params, names: list[str],
     eagerly and captures it as one CUDA graph per (shapes, names, trips,
     chunk and settings); each later call copies its weights and targets
     into the graph's inputs and replays it (the replay equals the eager
-    chain bit for bit; ``graph=False`` runs it eagerly)."""
+    chain bit for bit; ``graph=False`` runs it eagerly).
+
+    The call is a ``rollout`` span (``utils/timing.py``) of phases
+    ``rollout.prepare`` (segmentation, targets, weights, uploads and the
+    copies into the graph's inputs), ``rollout.capture`` (the first call's
+    eager chain and capture) or ``rollout.replay``, and ``rollout.fetch``
+    (the one read of the results).  The chain also keeps
+    each segment's executed and accepted trips on the device, graph or
+    not; the fetch reads them with the sums and records them as the counts
+    ``b1.trips_executed`` and ``b1.trips_accepted`` (``segment=b``)."""
     nets, rg, hh = _pop_split(kind, pop_params)
     dev = nets[0][0].device
-    lens, dt, seg, n_seg, n_ch, seg_v, vsegs = _segment_recordings(
-        names, seg_samples=seg_samples, chunk=chunk, voltages=voltages)
-    q_req = len(names)
     p_mem = nets[0][0].shape[0]
-    tsegs = np.zeros((n_seg, q_req, n_ch * chunk), np.float32)
-    wsegs = np.zeros((n_seg, q_req, n_ch * chunk), np.float32)
-    counts = np.empty(q_req, np.float64)
-    for qi, n in enumerate(names):
-        tr = np.asarray(truth[n], np.float32)
-        if tr.shape[0] < lens[qi]:
-            raise ValueError(f"truth[{n!r}] has {tr.shape[0]} samples, "
-                             f"protocol has {lens[qi]}")
-        lo, hi = (spans or {}).get(n, (0, lens[qi]))
-        lo, hi = max(int(lo), 0), min(int(hi), lens[qi])
-        counts[qi] = max(hi - lo, 1)
-        for b in range(n_seg):
-            g0 = b * seg
-            e = min(g0 + n_ch * chunk, lens[qi])
-            if g0 < e:
-                tsegs[b, qi, :e - g0] = tr[g0:e]
-            # score only this segment's own samples: the chunk padding past
-            # seg comes again at the head of the next segment's grid
-            slo, shi = max(lo - g0, 0), min(hi - g0, seg)
-            if slo < shi:
-                wsegs[b, qi, slo:shi] = 1.0
+    with span("rollout", kind=kind, members=p_mem, recordings=len(names)):
+        with span("rollout.prepare"):
+            lens, dt, seg, n_seg, n_ch, seg_v, vsegs = _segment_recordings(
+                names, seg_samples=seg_samples, chunk=chunk,
+                voltages=voltages)
+            q_req = len(names)
+            tsegs = np.zeros((n_seg, q_req, n_ch * chunk), np.float32)
+            wsegs = np.zeros((n_seg, q_req, n_ch * chunk), np.float32)
+            counts = np.empty(q_req, np.float64)
+            for qi, n in enumerate(names):
+                tr = np.asarray(truth[n], np.float32)
+                if tr.shape[0] < lens[qi]:
+                    raise ValueError(f"truth[{n!r}] has {tr.shape[0]} "
+                                     f"samples, protocol has {lens[qi]}")
+                lo, hi = (spans or {}).get(n, (0, lens[qi]))
+                lo, hi = max(int(lo), 0), min(int(hi), lens[qi])
+                counts[qi] = max(hi - lo, 1)
+                for b in range(n_seg):
+                    g0 = b * seg
+                    e = min(g0 + n_ch * chunk, lens[qi])
+                    if g0 < e:
+                        tsegs[b, qi, :e - g0] = tr[g0:e]
+                    # score only this segment's own samples: the chunk
+                    # padding past seg comes again at the head of the next
+                    # segment's grid
+                    slo, shi = max(lo - g0, 0), min(hi - g0, seg)
+                    if slo < shi:
+                        wsegs[b, qi, slo:shi] = 1.0
 
-    kw = dict(c=c, rg=rg, hh=hh, trips=int(trips), rtol=float(rtol),
-              atol=float(atol), dt=float(dt), t_end=seg * float(dt),
-              q_req=q_req, n_ch=n_ch, chunk=int(chunk), cull=bool(cull))
+            kw = dict(c=c, rg=rg, hh=hh, trips=int(trips), rtol=float(rtol),
+                      atol=float(atol), dt=float(dt), t_end=seg * float(dt),
+                      q_req=q_req, n_ch=n_ch, chunk=int(chunk),
+                      cull=bool(cull))
 
-    def chain(seg_v, vsegs, tsegs, wsegs, *weights):
-        layers = list(zip(weights[0::2], weights[1::2]))
-        y0 = _rest(p_mem, q_req, seg_v.device)
-        acc = torch.zeros((p_mem, q_req), dtype=torch.float32,
-                          device=seg_v.device)
-        mask = None
-        for b in range(seg_v.shape[0]):
-            acc, y0, mask = _popsweep_segment_reduce(
-                layers, seg_v[b], y0, vsegs[b], tsegs[b], wsegs[b], acc,
-                **kw)
-        return acc, mask
+            def chain(seg_v, vsegs, tsegs, wsegs, *weights):
+                layers = list(zip(weights[0::2], weights[1::2]))
+                y0 = _rest(p_mem, q_req, seg_v.device)
+                acc = torch.zeros((p_mem, q_req), dtype=torch.float32,
+                                  device=seg_v.device)
+                mask, n_out = None, []
+                for b in range(seg_v.shape[0]):
+                    acc, y0, mask, n = _popsweep_segment_reduce(
+                        layers, seg_v[b], y0, vsegs[b], tsegs[b], wsegs[b],
+                        acc, **kw)
+                    n_out += n
+                # [segments, 2]: each launch's executed and accepted trips
+                return acc, mask, torch.stack(n_out).view(-1, 2)
 
-    inputs = [torch.as_tensor(x, device=dev)
-              for x in (seg_v, vsegs, tsegs, wsegs)]
-    inputs += [x for layer in nets for x in layer]
-    if dev.type == "cuda" and graph:
-        key = (str(dev), kind, tuple(names), int(trips), int(chunk),
-               tuple(tuple(x.shape) for x in inputs),
-               tuple(float(x) for x in rg),
-               None if hh is None else tuple(float(x) for x in hh),
-               tuple(float(x) for x in c), float(dt), float(rtol),
-               float(atol), bool(cull))
-        g = _ROLLOUT_GRAPHS.get(key)
-        if g is None:
-            acc, mask = chain(*inputs)
-            _ROLLOUT_GRAPHS[key] = Graph(chain,
-                                         *[x.clone() for x in inputs])
+            inputs = [torch.as_tensor(x, device=dev)
+                      for x in (seg_v, vsegs, tsegs, wsegs)]
+            inputs += [x for layer in nets for x in layer]
+            key = g = None
+            if dev.type == "cuda" and graph:
+                key = (str(dev), kind, tuple(names), int(trips), int(chunk),
+                       tuple(tuple(x.shape) for x in inputs),
+                       tuple(float(x) for x in rg),
+                       None if hh is None else tuple(float(x) for x in hh),
+                       tuple(float(x) for x in c), float(dt), float(rtol),
+                       float(atol), bool(cull))
+                g = _ROLLOUT_GRAPHS.get(key)
+                if g is not None:
+                    for dst, src in zip(g.inputs, inputs):
+                        dst.copy_(src)
+        if g is not None:
+            with span("rollout.replay"):
+                acc, mask, n_trips = g.replay()
+        elif key is not None:
+            with span("rollout.capture"):
+                acc, mask, n_trips = chain(*inputs)
+                _ROLLOUT_GRAPHS[key] = Graph(chain,
+                                             *[x.clone() for x in inputs])
         else:
-            for dst, src in zip(g.inputs, inputs):
-                dst.copy_(src)
-            acc, mask = g.replay()
-    else:
-        acc, mask = chain(*inputs)
-    sums = acc.cpu().numpy().astype(np.float64)
-    alive = mask.cpu().numpy()
+            acc, mask, n_trips = chain(*inputs)
+        with span("rollout.fetch"):
+            sums = acc.cpu().numpy().astype(np.float64)
+            alive = mask.cpu().numpy()
+            for b, (run, accepted) in enumerate(n_trips.cpu().tolist()):
+                count("b1.trips_executed", run, segment=b)
+                count("b1.trips_accepted", accepted, segment=b)
     return np.where(alive, sums / counts[None, :], np.inf)

@@ -31,6 +31,7 @@ from ionflux_torch._device import resolve_device
 from ionflux_torch.models.hh import a_gate_rhs
 from ionflux_torch.models.nn import MLP, mlp_apply
 from ionflux_torch.models.registry import HHParams, NETSCALE, VRANGE
+from ionflux_torch.utils.timing import count, span
 
 ADAM_EPS = 1e-8
 
@@ -89,15 +90,27 @@ def fit_chunk(net, opt_state: AdamState, x, y, residual=None, anchors=None,
               gamma: float = 0.9):
     """``iters`` Adam updates from (net, opt_state) -> (net, opt_state,
     losses [iters] on the device).  The inputs are not changed: the
-    returned net and state are new tensors."""
-    if x.device.type == "cuda":
-        if torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError("surface training runs in float32: set "
-                               "torch.backends.cuda.matmul.allow_tf32 = "
-                               "False")
-        return _UpdateGraph.get(net, x, residual, anchors, lr, step_size,
-                                gamma).run(net, opt_state, x, y, residual,
-                                           anchors, iters)
+    returned net and state are new tensors.  The call is a ``fit_chunk``
+    span (``utils/timing.py``); on the card its phases are spans too
+    (``_UpdateGraph.run``), and the counts ``fit_chunk.updates_eager`` and
+    ``fit_chunk.updates_replayed`` say how its updates ran."""
+    with span("fit_chunk", iters=iters):
+        if x.device.type == "cuda":
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise RuntimeError("surface training runs in float32: set "
+                                   "torch.backends.cuda.matmul.allow_tf32 "
+                                   "= False")
+            return _UpdateGraph.get(net, x, residual, anchors, lr, step_size,
+                                    gamma).run(net, opt_state, x, y,
+                                               residual, anchors, iters)
+        count("fit_chunk.updates_eager", iters)
+        return _fit_chunk_eager(net, opt_state, x, y, residual, anchors,
+                                iters, lr, step_size, gamma)
+
+
+def _fit_chunk_eager(net, opt_state, x, y, residual, anchors, iters, lr,
+                     step_size, gamma):
+    """fit_chunk off the card: every update eager."""
     flat = [t.detach().clone().requires_grad_(True)
             for pair in _layers(net) for t in pair]
     pairs = list(zip(flat[0::2], flat[1::2]))
@@ -191,9 +204,12 @@ class _UpdateGraph:
 
     def run(self, net, opt_state: AdamState, x, y, residual, anchors,
             iters: int):
+        """``iters`` updates from (net, opt_state): the load into the
+        static copies, the eager warm-up and the capture where the graph is
+        new, the replays, the snapshot; each phase a span."""
         moments = ([t for pair in opt_state.mu for t in pair],
                    [t for pair in opt_state.nu for t in pair])
-        with torch.no_grad():
+        with span("fit_chunk.load"), torch.no_grad():
             for dst, src in zip(self.flat,
                                 [t for pair in _layers(net) for t in pair]):
                 dst.copy_(src)
@@ -211,26 +227,34 @@ class _UpdateGraph:
         losses = []
         n_eager = 0 if self.graph is not None else min(self.WARMUP, iters)
         if n_eager:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(n_eager):
-                    self.opt.zero_grad(set_to_none=True)
-                    losses.append(self._update())
-            torch.cuda.current_stream().wait_stream(side)
+            with span("fit_chunk.warmup"):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    for _ in range(n_eager):
+                        self.opt.zero_grad(set_to_none=True)
+                        losses.append(self._update())
+                torch.cuda.current_stream().wait_stream(side)
         if iters > n_eager and self.graph is None:
-            self.opt.zero_grad(set_to_none=True)
-            self.graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(self.graph):
-                    self.loss = self._update()
-            except RuntimeError as exc:
-                raise RuntimeError("fit_chunk: capturing the Adam update "
-                                   f"as a CUDA graph failed ({exc})") from exc
-        for _ in range(iters - n_eager):
-            self.graph.replay()
-            losses.append(self.loss.clone())
-        net, state = _snapshot(self.flat, self.opt, opt_state.count + iters)
+            with span("fit_chunk.capture"):
+                self.opt.zero_grad(set_to_none=True)
+                self.graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(self.graph):
+                        self.loss = self._update()
+                except RuntimeError as exc:
+                    raise RuntimeError(
+                        "fit_chunk: capturing the Adam update as a CUDA "
+                        f"graph failed ({exc})") from exc
+        with span("fit_chunk.replay"):
+            for _ in range(iters - n_eager):
+                self.graph.replay()
+                losses.append(self.loss.clone())
+        count("fit_chunk.updates_eager", n_eager)
+        count("fit_chunk.updates_replayed", iters - n_eager)
+        with span("fit_chunk.snapshot"):
+            net, state = _snapshot(self.flat, self.opt,
+                                   opt_state.count + iters)
         return net, state, (torch.stack(losses) if losses
                             else x.new_empty(0))
 

@@ -22,6 +22,8 @@ import tempfile
 
 import torch
 
+from ionflux_torch.utils.timing import count, span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # library name -> source; fused_solve: the MLP trip kernel (sweep, popsweep,
 # population) and the MLP while-loop sweep; hh_solve: the HH population trip
@@ -58,15 +60,27 @@ def build(names=None) -> dict[str, tuple[str, str]]:
     """Compile every named source (all of ``SOURCES`` by default) whose
     hashed library is missing, in parallel.  Returns {name: (path, compiler
     log)}; the log holds ptxas' register and shared-memory report when a
-    build ran, else is empty."""
+    build ran, else is empty.  A build that runs nvcc is an ``ops.build``
+    span (``source``: the sources built) with an ``ops.builds`` count of 1
+    for each source (``utils/timing.py``)."""
     names = list(SOURCES) if names is None else list(names)
+    out = {name: (library_path(name), "") for name in names}
+    missing = [name for name in names if not os.path.exists(out[name][0])]
+    if missing:
+        with span("ops.build", source=",".join(missing)):
+            out.update(_compile(missing))
+            for name in missing:
+                count("ops.builds", 1, source=name)
+    return out
+
+
+def _compile(names) -> dict[str, tuple[str, str]]:
+    """One nvcc process per named source, started together; {name: (path,
+    compiler log)}."""
     out, running = {}, {}
     try:
         for name in names:
             path = library_path(name)
-            if os.path.exists(path):
-                out[name] = (path, "")
-                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
@@ -223,7 +237,8 @@ class Graph:
     next replay overwrites.  ``fn`` must make no host synchronisation and
     no host-to-device copy, and must have run eagerly once on the device
     before (kernels built, caches filled).  Each replay adds the launches it
-    recorded to the wrappers' counts (``count_launch``).  ``generators``
+    recorded to the wrappers' counts (``count_launch``); the capture is a
+    ``graph.capture`` span (``utils/timing.py``).  ``generators``
     (CUDA ``torch.Generator``s that ``fn`` draws from) are registered with
     the graph, so each replay draws new numbers and advances them."""
 
@@ -235,7 +250,7 @@ class Graph:
             self._graph.register_generator_state(gen)
         _captured = {}
         try:
-            with torch.cuda.graph(self._graph):
+            with span("graph.capture"), torch.cuda.graph(self._graph):
                 self.output = fn(*inputs)
             self.launches = _captured
         finally:

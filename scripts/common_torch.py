@@ -9,7 +9,11 @@
   tables' MAEs, the drawn noise) is float64;
 - ``--trace`` records a ``torch.profiler`` trace of the whole run into
   ``<outdir>/trace/`` (``trace.json``, Chrome's format), written when the
-  run ends;
+  run ends, with the program's own spans and counts of the run
+  (``ionflux_torch.utils.timing``: the calls' phases, B1's trips, the
+  builds and captures) appended on the profiler's clock under the process
+  ``ionflux_torch``, so Perfetto or chrome://tracing shows them above the
+  kernels (spans as slices, counts as instant events with their value);
 - ``--pred`` replays a trained study (``studies.predict_study``) instead of
   training it, ``--debug`` draws its surface plot (matplotlib);
 - the real-data drivers (``real=True``) add ``--smoothi`` (the exp-fit
@@ -21,8 +25,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
+import re
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -101,11 +108,51 @@ def traced(args, out: str):
     print(f"profiler trace -> {trace_dir}")
     prof = profile(activities=acts)
     prof.start()
+    since = time.time_ns()
     try:
         yield
     finally:
         prof.stop()
-        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        path = os.path.join(trace_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        add_recorded(path, since)
+
+
+def add_recorded(path: str, since_ns: int) -> int:
+    """Append the recorder's spans and counts from ``since_ns`` on to the
+    Chrome trace ``path`` that ``torch.profiler`` exported, on its clock
+    (``ts`` in microseconds past the file's ``baseTimeNanoseconds``).  The
+    file is patched at its end, not parsed.  Returns the events added."""
+    from ionflux_torch.utils import timing
+
+    with open(path, "rb") as fh:
+        found = re.search(rb'"baseTimeNanoseconds":\s*(\d+)', fh.read(4096))
+    base = int(found.group(1)) if found else 0
+    who = {"pid": "ionflux_torch", "tid": "spans"}
+    events = [dict(ph="X", name=s.name, ts=(s.start_ns - base) / 1e3,
+                   dur=(s.end_ns - s.start_ns) / 1e3, **who,
+                   args=dict(s.attrs, id=s.id, parent=s.parent))
+              for s in timing.spans() if s.start_ns >= since_ns]
+    events += [dict(ph="i", s="t", name=c.name, ts=(c.ns - base) / 1e3,
+                    **who, args=dict(c.attrs, value=c.value, span=c.span))
+               for c in timing.counts() if c.ns >= since_ns]
+    if not events:
+        return 0
+    with open(path, "r+b") as fh:
+        size = fh.seek(0, os.SEEK_END)
+        at = max(0, size - 65536)
+        fh.seek(at)
+        tail = fh.read()
+        # the traceEvents list closes before the file's last key
+        last_key = tail.rfind(b'"traceName"')
+        end = tail.rfind(b"]", 0, last_key if last_key >= 0 else len(tail))
+        if end < 0:
+            raise ValueError(f"{path}: no traceEvents list to extend")
+        sep = b"" if tail[:end].rstrip().endswith(b"[") else b","
+        fh.seek(at + end)
+        fh.write(sep + b",".join(json.dumps(e, default=str).encode()
+                                  for e in events) + tail[end:])
+    return len(events)
 
 
 def study_main(spec, n_seeds: int, description: str, argv=None, metric=None,

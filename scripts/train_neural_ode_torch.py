@@ -48,6 +48,7 @@ from ionflux_torch.solver import odeint_adjoint, odeint_rk4  # noqa: E402
 from ionflux_torch.solver.fixed import _interval  # noqa: E402
 from ionflux_torch.studies import REFDIR  # noqa: E402
 from ionflux_torch.utils.ckpt import save_pytree  # noqa: E402
+from ionflux_torch.utils.timing import span  # noqa: E402
 
 LR = 3e-4
 RK4_SUB = 8
@@ -145,23 +146,25 @@ class Trainer:
         """Capture the interval's forward and vector-Jacobian product on
         static inputs, after one eager run of each (on a side stream)."""
         t = time.perf_counter()
-        self._in = [self.y0.clone(), self.ts[0].clone(), self.ts[1].clone(),
-                    torch.zeros_like(self.y0)]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._fwd(*self._in[:3])
-            self._vjp(*self._in)
-        torch.cuda.current_stream().wait_stream(side)
-        fwd, vjp = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(fwd):
-                self._out_fwd = self._fwd(*self._in[:3])
-            with torch.cuda.graph(vjp):
-                self._out_vjp = self._vjp(*self._in)
-        except RuntimeError as exc:
-            raise RuntimeError("train_neural_ode: capturing the RK4 interval "
-                               f"as a CUDA graph failed ({exc})") from exc
+        with span("node.capture"):
+            self._in = [self.y0.clone(), self.ts[0].clone(),
+                        self.ts[1].clone(), torch.zeros_like(self.y0)]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._fwd(*self._in[:3])
+                self._vjp(*self._in)
+            torch.cuda.current_stream().wait_stream(side)
+            fwd, vjp = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(fwd):
+                    self._out_fwd = self._fwd(*self._in[:3])
+                with torch.cuda.graph(vjp):
+                    self._out_vjp = self._vjp(*self._in)
+            except RuntimeError as exc:
+                raise RuntimeError("train_neural_ode: capturing the RK4 "
+                                   f"interval as a CUDA graph failed "
+                                   f"({exc})") from exc
         self.graphs = (fwd, vjp)
         self.capture_s = time.perf_counter() - t
         print(f"captured the RK4 interval's forward and vector-Jacobian "
@@ -186,28 +189,36 @@ class Trainer:
         return torch.stack(ys)
 
     def step(self) -> torch.Tensor:
-        """One Adam update; returns its loss (before the update)."""
-        if self.adjoint:
-            self.opt.zero_grad(set_to_none=True)
-            loss = self.loss()
-            loss.backward()
-            self.opt.step()
+        """One Adam update; returns its loss (before the update).  The
+        update is a ``node.step`` span (``utils/timing.py``); in RK4 mode
+        its phases are the spans ``node.forward`` (``states()``),
+        ``node.loss``, ``node.backward`` (the interval VJPs, last first)
+        and ``node.adam``."""
+        with span("node.step", adjoint=self.adjoint):
+            if self.adjoint:
+                self.opt.zero_grad(set_to_none=True)
+                loss = self.loss()
+                loss.backward()
+                self.opt.step()
+                return loss.detach()
+            with span("node.forward"):
+                ys = self.states()
+            with span("node.loss"), torch.enable_grad():
+                ys = ys.requires_grad_(True)
+                loss = self._loss_of(ys)
+                (g_ys,) = torch.autograd.grad(loss, ys)
+            with span("node.backward"):
+                torch._foreach_zero_(self.acc)
+                g = g_ys[-1]
+                for k in range(self.ts.shape[0] - 2, -1, -1):
+                    args = (ys[k].detach(), self.ts[k], self.ts[k + 1], g)
+                    g = (self._replay(1, *args) if self.graphs
+                         else self._vjp(*args)) + g_ys[k]
+            with span("node.adam"):
+                for p, a in zip(self.flat, self.acc):
+                    p.grad = a
+                self.opt.step()
             return loss.detach()
-        ys = self.states()
-        with torch.enable_grad():
-            ys = ys.requires_grad_(True)
-            loss = self._loss_of(ys)
-            (g_ys,) = torch.autograd.grad(loss, ys)
-        torch._foreach_zero_(self.acc)
-        g = g_ys[-1]
-        for k in range(self.ts.shape[0] - 2, -1, -1):
-            args = (ys[k].detach(), self.ts[k], self.ts[k + 1], g)
-            g = (self._replay(1, *args) if self.graphs
-                 else self._vjp(*args)) + g_ys[k]
-        for p, a in zip(self.flat, self.acc):
-            p.grad = a
-        self.opt.step()
-        return loss.detach()
 
 
 class Run(NamedTuple):
