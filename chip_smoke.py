@@ -164,12 +164,19 @@ torch ops, replayed from CUDA graphs):
       and the closed form (1e-5);
   (u) ``scripts/train_neural_ode_torch.py``'s ``main(--protocol act)`` at
       full width (2-200x5-1, pretrained) for three RK4-mode updates (the
-      RK4 interval's forward and vector-Jacobian product captured as two
-      CUDA graphs at the first, replayed 300 times an update) and two
-      adjoint-mode updates (the backward interval captured once); ms per
-      update against its bound and chain floor, the graphs' kernels; on a
-      40 ms window the replayed updates against eager ones (bit for bit)
-      and both modes' idle share; the adjoint's gradient against backprop
+      fused path: ``ops/node_rk4.py``'s two kernels a solve) and two
+      adjoint-mode updates (the backward interval captured once); the RK4
+      run's node_fwd and node_vjp launches (exactly iters + 1 and iters)
+      and each kernel's device ms against its bound (a ``kernels`` row
+      each); ms per update against its bound and chain floor, the fused
+      update's kernel count, its first loss and gradient at 301 outputs
+      against the float64 plain reference's and the eager update's, the
+      graph path's kernels a replay; on a 40 ms window the graph path's
+      replayed updates (the size rule forced to 0) against eager ones (bit
+      for bit), the fused updates against the float64 reference and the
+      eager ones (losses, first gradient, change; the card test's
+      tolerances, tests/_node_reference.py) and the modes' idle share; the
+      adjoint's gradient against backprop
       through RK4 (n_sub 32; relative error below 1e-3); JAX's
       out/neural-ode/model.npz through the RK4 solve to 1,500 ms, card
       against CPU (1e-4 of the largest current);
@@ -449,13 +456,15 @@ def reset_counts() -> None:
     from ionflux_torch.ops import bias_probe as B
     from ionflux_torch.ops import fused_solve as F
     from ionflux_torch.ops import hh_solve as H
+    from ionflux_torch.ops import node_rk4 as NR
     from ionflux_torch.ops import spline as SP
     from ionflux_torch.ops import sym_eig as SE
 
     for k in (F.fused_nnf_solve_ft, F.fused_nnf_popsweep_solve_ft,
               F.fused_nnf_pop_solve_ft, F.fused_nnf_solve,
               H.fused_hh_pop_solve_ft, H.fused_hh_rk4, B.bias_probe,
-              SP.tridiag_solve_batched, SE.sym_eig):
+              SP.tridiag_solve_batched, SE.sym_eig, NR._fwd_cuda,
+              NR._vjp_cuda):
         k.launches = 0
 
 
@@ -536,11 +545,17 @@ def cluster_fields(info: dict, n: int, ms: float, ms_mlp: float) -> dict:
                 n_valid=n, ms_per_trip=ms / n, mlp_ms=ms_mlp)
 
 
-def check_counts(what: str, launches: dict) -> None:
+def check_counts(what: str, launches: dict,
+                 expected: dict | None = None) -> None:
+    """Every kernel launched at least once, and exactly ``expected``
+    times where that is given."""
     log(f"{what}: launches {launches}")
     for n, c in launches.items():
         if c < 1:
             raise RuntimeError(f"{what} never launched {n}")
+    if expected is not None and launches != expected:
+        raise RuntimeError(f"{what}: launches {launches}, expected "
+                           f"{expected}")
 
 
 def profiled(call, kernel: str) -> tuple[float, float, float]:
@@ -2143,16 +2158,20 @@ PROFILE_MS = 30.0     # the profiled solves (each kernel is a trace event)
 # d1's three profiled solves took ~30 s, nearly all of it the profiler's
 # own (PERF.md has their idle shares)
 # (u): neural-ODE training through the solve
-NODE_STEPS = (3, 2)   # Adam updates by RK4 (the first captures the
-                      # interval's graphs) and by the adjoint
+NODE_STEPS = (3, 2)   # Adam updates by RK4 (the fused kernels) and by the
+                      # adjoint
+# the fused update is held to the float64 reference and to the eager
+# update at tests/test_torch_node_rk4.py's card tolerances, which
+# tests/_node_reference.py defines with the gap measure
 ADJ_RK4_SUB = 32      # the fine RK4 the adjoint's gradient is held against
 ADJ_REL = 1e-3        # adjoint vs backprop through a fine RK4 (JAX's bound)
 MLP_LEVELS = 8        # dependent FMA levels of a 200-wide dot as a tree
 CARRY_RTOL = 1e-4     # the carried net's RK4 current, card vs CPU
 
 
-def kernels_in(call) -> int:
-    """Device kernels one ``call()`` runs (the profiler's count)."""
+def kernel_trace(call, names=()) -> tuple[int, dict]:
+    """Device kernels one ``call()`` runs (the profiler's count), and the
+    device ms of the kernels whose name holds each of ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2161,8 +2180,11 @@ def kernels_in(call) -> int:
                              ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in events), {
+        n: sum(getattr(e, "self_device_time_total", 0.0) for e in events
+               if n in e.key) / 1e3 for n in names}
 
 
 def idle_text(secs: float, busy_ms: float) -> str:
@@ -2289,19 +2311,25 @@ def method_path(dev) -> None:
         raise RuntimeError(f"(t) odeint_rk4 vs odeint {d}, closed form {d_x}")
 
 
-def neural_ode_path(dev) -> None:
+def neural_ode_path(dev, rows) -> None:
     """Phase (u): ``train_neural_ode_torch.main(--protocol act)`` at full
-    width in both modes (NODE_STEPS Adam updates), the replayed updates
+    width in both modes (NODE_STEPS Adam updates), the RK4 run's node_fwd
+    and node_vjp launches counted (iters + 1 and iters) and each kernel's
+    device ms (a row each), the fused update's kernels and its losses,
+    gradient and change against the float64 plain reference and the eager
+    update (the card test's tolerances), the graph path's replayed updates
     against eager ones (bit for bit, on a 40 ms window), the adjoint's
     gradient against backprop through a fine RK4, and the carried-across
     out/neural-ode/model.npz through the RK4 solve, card against CPU."""
     import tempfile
 
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    sys.path[:0] = [os.path.join(ROOT, "scripts"), os.path.join(ROOT, "tests")]
+    import _node_reference as R
     import train_neural_ode_torch as NO
 
     from ionflux_torch import protocols as P
     from ionflux_torch.models.registry import SYNTHETIC
+    from ionflux_torch.ops import node_rk4 as NR
     from ionflux_torch.observe import gate_current
     from ionflux_torch.solver import adjoint as TAD
     from ionflux_torch.utils.ckpt import load_pytree
@@ -2312,6 +2340,7 @@ def neural_ode_path(dev) -> None:
             argv = ["--protocol", "act", "--iters", str(steps), "--outdir",
                     tmp] + (["--adjoint"] if mode == "adjoint" else [])
             n_graphs = len(TAD._INTERVAL_GRAPHS)
+            reset_counts()
             t = time.perf_counter()
             runs[mode] = run = NO.main(argv)
             secs = time.perf_counter() - t
@@ -2323,54 +2352,136 @@ def neural_ode_path(dev) -> None:
                 f" losses {[round(x, 6) for x in run.losses]}; host s per "
                 f"update {[round(x, 3) for x in run.step_s]}; final MAE vs "
                 f"clean truth {run.final_mae:.4f}")
+            if mode == "rk4":   # the updates and the final states()
+                launches = {"node_fwd": NR._fwd_cuda.launches,
+                            "node_vjp": NR._vjp_cuda.launches}
+                check_counts("(u) main(--protocol act)", launches,
+                             {"node_fwd": steps + 1, "node_vjp": steps})
             if mode == "adjoint" and len(TAD._INTERVAL_GRAPHS) != n_graphs + 1:
                 raise RuntimeError("(u) the adjoint's backward interval was "
                                    "not captured exactly once")
     tr = runs["rk4"].trainer
-    replay_ms = 1e3 * float(np.mean(runs["rk4"].step_s[1:]))
+    if not tr.fused:
+        raise RuntimeError("(u) the published net did not take the fused "
+                           "path")
+    fused_ms = 1e3 * float(np.mean(runs["rk4"].step_s[1:]))
     adj_ms = [1e3 * x for x in runs["adjoint"].step_s]
     flops = 3 * 300 * NO.RK4_SUB * 4 * 2 * sum(
         int(w.numel() + b.numel()) for w, b in runs["rk4"].init)
     b_ms, b_by = roofline(flops, 0)
     chain = 300 * NO.RK4_SUB * 4 * len(runs["rk4"].init)
     floor_ms = chain * MLP_LEVELS * FP32_LATENCY / (sm_clock_mhz() * 1e3)
+    n_fused, k_ms = kernel_trace(tr.step, tuple(launches))
 
-    # replayed against eager, full width, on a 40 ms window (4 intervals)
+    def trainer(ts, data, path):
+        """A trainer of the pretrained net on the path asked: "fused",
+        "graphs" (the size rule forced to 0) or "eager"."""
+        with mock.patch.object(NR, "node_cluster", NR.node_cluster if
+                               path == "fused" else lambda *_: 0):
+            out = NO.Trainer(runs["rk4"].init, proto, ts, y0, data,
+                             adjoint=False, graph=path != "eager")
+        assert out.fused == (path == "fused")
+        return out
+
+    # the three paths on a 40 ms window (4 intervals), two updates each
     proto = P.activation_protocol(20.0, dt_ms=1.0, device=dev)
     ts = torch.linspace(0.0, 40.0, 5, device=dev)
     y0 = torch.tensor([0.0, 1.0], device=dev)
     data = runs["rk4"].data[:5].clone()
-    pair = {g: NO.Trainer(runs["rk4"].init, proto, ts, y0, data,
-                          adjoint=False, graph=g) for g in (False, True)}
-    ms, losses = {}, {}
-    for g, trainer in pair.items():
-        trainer.step()
-        ms[g], losses[g] = cuda_ms(trainer.step, reps=1, warm=False)
-    same = bool(torch.equal(losses[False], losses[True])) and all(
-        torch.equal(a, b) for a, b in zip(pair[False].flat, pair[True].flat))
+    trs = {path: trainer(ts, data, path)
+           for path in ("eager", "graphs", "fused")}
+    ms, win = {}, {}
+    for path, t in trs.items():
+        losses = [t.step()]
+        first = [p.grad.detach().clone() for p in t.flat]
+        ms[path], last = cuda_ms(t.step, reps=1, warm=False)
+        win[path] = ([float(x) for x in losses + [last]], first, t.flat)
+    eager, graphs, fused = trs["eager"], trs["graphs"], trs["fused"]
+    same = win["eager"][0] == win["graphs"][0] and all(
+        torch.equal(a, b) for a, b in zip(eager.flat, graphs.flat))
+    init = [x for pair in runs["rk4"].init for x in pair]
+    e_losses, e_first, e_flat = win["eager"]
+    to_eager = R.gaps(win["fused"], (e_losses, e_first, [
+        p.detach() - x for p, x in zip(e_flat, init)]), init)
+    to_f64 = R.gaps(win["fused"], R.f64_reference(fused, init, 2), init)
     adj = NO.Trainer(runs["rk4"].init, proto, ts, y0, data, adjoint=True)
     adj.step()
     ms["adjoint"], _ = cuda_ms(adj.step, reps=1, warm=False)
-    n_fwd = kernels_in(lambda: tr._replay(0, *tr._in[:3]))
-    n_vjp = kernels_in(lambda: tr._replay(1, *tr._in))
-    busy_r = profiled(pair[True].step, "none")[1]
-    busy_a = profiled(adj.step, "none")[1]
-    log(f"(u) RK4 update (9,600 right-hand sides forward): the interval's "
-        f"forward and vector-Jacobian product captured in {tr.capture_s:.2f}"
-        f" s as {n_fwd} and {n_vjp} kernels, replayed 300 times each: "
-        f"{replay_ms:.1f} ms an update; bound {b_ms:.4f} ms ({b_by}, "
-        f"{flops / 1e9:.2f} GFLOP); chain floor {chain} dependent layer "
-        f"applications forward, {floor_ms:.3f} ms at {MLP_LEVELS} FMA "
-        f"levels each; adjoint update ms {[round(x, 1) for x in adj_ms]}")
-    log(f"(u) 40 ms window (4 intervals), two updates each: replayed vs "
+    n_fwd, _ = kernel_trace(lambda: graphs._replay(0, *graphs._in[:3]))
+    n_vjp, _ = kernel_trace(lambda: graphs._replay(1, *graphs._in))
+    busy = {path: profiled(trs[path].step, "none")[1]
+            for path in ("graphs", "fused")}
+    busy["adjoint"] = profiled(adj.step, "none")[1]
+
+    # the fused update's first loss and gradient at 301 outputs against the
+    # eager update's (one eager update: ~2.1 M launches) and the float64
+    # reference's; the forward's states against the reference's
+    full = {path: trainer(runs["rk4"].trainer.ts, runs["rk4"].data, path)
+            for path in ("eager", "fused")}
+    with torch.no_grad():
+        ys_fused = full["fused"].states()
+    upd = {path: (float(t.step()), [p.grad for p in t.flat])
+           for path, t in full.items()}
+    t = time.perf_counter()
+    r_losses, r_first, _, r_ys = R.f64_reference(full["fused"], init, 1)
+    ref_s = time.perf_counter() - t
+    (l_f, g_f), (l_e, g_e) = upd["fused"], upd["eager"]
+    full_eager = (abs(l_f - l_e) / abs(l_e), R.norm_gap(g_f, g_e))
+    full_f64 = (abs(l_f - r_losses[0]) / abs(r_losses[0]),
+                R.norm_gap(g_f, r_first))
+    err = {"node_fwd": float((ys_fused.double() - r_ys).abs().max()),
+           "node_vjp": max(float((a.double() - b).abs().max())
+                           for a, b in zip(g_f, r_first))}
+    log(f"(u) RK4 update (9,600 right-hand sides forward), fused: "
+        f"{fused_ms:.1f} ms an update, {n_fused} kernels, of which node_fwd"
+        f" {k_ms['node_fwd']:.3f} ms and node_vjp {k_ms['node_vjp']:.3f} "
+        f"ms (profiled); bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.2f} "
+        f"GFLOP); chain floor {chain} dependent layer applications forward,"
+        f" {floor_ms:.3f} ms at {MLP_LEVELS} FMA levels each; the graph "
+        f"path's interval graphs {n_fwd} and {n_vjp} kernels a replay "
+        f"(captured in {graphs.capture_s:.2f} s); adjoint update ms "
+        f"{[round(x, 1) for x in adj_ms]}")
+    log(f"(u) 301 outputs, first update: fused vs float64 reference "
+        f"({ref_s:.1f} s) loss {full_f64[0]:.2e} (tol {R.F64_LOSS_RTOL}), gradient "
+        f"{full_f64[1]:.2e} by leaf (tol {R.F64_GRAD_TOL}), max |dys| "
+        f"{err['node_fwd']:.2e}, max |dgrad| {err['node_vjp']:.2e}; fused "
+        f"vs eager loss {full_eager[0]:.2e} (tol {R.EAGER_LOSS_RTOL}), "
+        f"gradient {full_eager[1]:.2e} (tol {R.EAGER_GRAD_TOL})")
+    log(f"(u) 40 ms window (4 intervals), two updates each: graphs vs "
         f"eager {'bit-identical' if same else 'DIFFERENT'} (loss, net); "
-        f"eager {ms[False]:.1f} ms an update, replayed {ms[True]:.1f} ms, "
-        f"adjoint {ms['adjoint']:.1f} ms; profiled: replayed update "
-        f"{idle_text(ms[True] / 1e3, busy_r)}; adjoint update "
-        f"{idle_text(ms['adjoint'] / 1e3, busy_a)}")
+        f"fused vs float64 reference (loss, first gradient, change) "
+        f"{[f'{x:.2e}' for x in to_f64]} (tol {R.F64_LOSS_RTOL}, "
+        f"{R.F64_GRAD_TOL}, {R.F64_CHANGE_TOL}), vs eager "
+        f"{[f'{x:.2e}' for x in to_eager]} (tol {R.EAGER_LOSS_RTOL}, "
+        f"{R.EAGER_GRAD_TOL}, {R.EAGER_CHANGE_TOL}); eager "
+        f"{ms['eager']:.1f} ms an update, graphs {ms['graphs']:.1f} ms, "
+        f"fused {ms['fused']:.2f} ms, adjoint {ms['adjoint']:.1f} ms; "
+        f"profiled: graphs {idle_text(ms['graphs'] / 1e3, busy['graphs'])};"
+        f" fused {idle_text(ms['fused'] / 1e3, busy['fused'])}; adjoint "
+        f"{idle_text(ms['adjoint'] / 1e3, busy['adjoint'])}")
     if not same:
         raise RuntimeError("(u) the replayed update differs from the eager "
                            "one")
+    f64_tol = (R.F64_LOSS_RTOL, R.F64_GRAD_TOL, R.F64_CHANGE_TOL)
+    eager_tol = (R.EAGER_LOSS_RTOL, R.EAGER_GRAD_TOL, R.EAGER_CHANGE_TOL)
+    if not (all(g <= t for g, t in zip(to_f64 + full_f64, f64_tol + f64_tol))
+            and all(g <= t for g, t in zip(to_eager + full_eager,
+                                           eager_tol + eager_tol))):
+        raise RuntimeError(f"(u) the fused update against float64 "
+                           f"{to_f64}, {full_f64} and against eager "
+                           f"{to_eager}, {full_eager}")
+    for name, share in (("node_fwd", 1), ("node_vjp", 2)):
+        bound, by = roofline(flops * share / 3, 0)
+        rows.append(dict(
+            name=name, route="cuda", source="ionflux_torch/csrc/node_rk4.cu",
+            replaces="none (no pallas_call): odeint_rk4 under "
+                     "jax.checkpoint, ionflux/solver/fixed.py:28",
+            launches=launches[name], max_abs_err=err[name], ms=k_ms[name],
+            plain_ms=None, bound_ms=bound, bound_by=by, library_ms=None,
+            chain_floor_ms=floor_ms if name == "node_fwd" else None,
+            cluster_size=tr.plan.csize, clusters=1,
+            design="cluster-slices+k-split+mbarrier-dsmem",
+            layer_pass="cluster"))
 
     # the adjoint's gradient against backprop through a fine RK4
     ts = torch.linspace(0.0, 500.0, 6, device=dev)
@@ -3447,7 +3558,7 @@ def main() -> int:
     log(f"surface path (s) done at {time.perf_counter() - t_start:.0f} s")
     method_path(dev)
     log(f"solver methods (t) done at {time.perf_counter() - t_start:.0f} s")
-    neural_ode_path(dev)
+    neural_ode_path(dev, rows)
     log(f"neural-ODE training (u) done at {time.perf_counter() - t_start:.0f}"
         f" s")
     s_study_path(dev)

@@ -29,13 +29,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # population) and the MLP while-loop sweep; hh_solve: the HH population trip
 # kernel and the HH RK4 kernel; bias_probe: the Mosaic bias-broadcast probe;
 # tridiag: the spline's Thomas solve (K1); sym_eig: the Jacobi
-# eigendecomposition of the device-resident CMA-ES (K2)
+# eigendecomposition of the device-resident CMA-ES (K2); node_rk4: the
+# neural-ODE trainer's RK4 solve and its vector-Jacobian product
 SOURCES = {
     "fused_solve": os.path.join(_PKG, "csrc", "fused_solve.cu"),
     "hh_solve": os.path.join(_PKG, "csrc", "hh_solve.cu"),
     "bias_probe": os.path.join(_PKG, "csrc", "bias_probe.cu"),
     "tridiag": os.path.join(_PKG, "csrc", "tridiag.cu"),
     "sym_eig": os.path.join(_PKG, "csrc", "sym_eig.cu"),
+    "node_rk4": os.path.join(_PKG, "csrc", "node_rk4.cu"),
 }
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -178,6 +180,28 @@ _SIGNATURES = {
         "ionflux_sym_eig": [
             _PTR, _PTR, _PTR,                   # a, w, v
             _I32, _I32, _I32,                   # m, n, max_sweeps
+            _PTR,                               # stream
+        ],
+    },
+    "node_rk4": {
+        "ionflux_node_rk4_fwd": [
+            _PTR, _PTR, _PTR, _PTR, _I32,       # w, knots, t0, dt, n_knots
+            _PTR, _I32, _PTR,                   # ts, n_t, y0
+            _PTR, _PTR,                         # ys, ystart
+            ctypes.POINTER(ctypes.c_int), _I32,  # sizes, n_layers
+            _I32, ctypes.POINTER(ctypes.c_int), _I32,  # cluster size, its
+                                                # geometry, floats per rank
+            _I32, _FLOATS,                      # n_sub, scalars
+            _PTR,                               # stream
+        ],
+        "ionflux_node_rk4_vjp": [
+            _PTR, _PTR, _PTR, _PTR, _I32,       # w, knots, t0, dt, n_knots
+            _PTR, _I32,                         # ts, n_t
+            _PTR, _PTR, _PTR,                   # ystart, g_ys, grad
+            ctypes.POINTER(ctypes.c_int), _I32,  # sizes, n_layers
+            _I32, ctypes.POINTER(ctypes.c_int), _I32,  # cluster size, its
+                                                # geometry, floats per rank
+            _I32, _FLOATS,                      # n_sub, scalars
             _PTR,                               # stream
         ],
     },

@@ -7,9 +7,14 @@ on the card, by each way the update can run, for the same net and data.
 The net and data are the script's (``main(--protocol act --iters 1)``: the
 pretrained 2-200x5-1 NN-f, 301 outputs to 3,000 ms).  One JSON line each:
 
-- ``interval graphs``: the script's RK4 update, the interval's forward and
-  vector-Jacobian product captured once and replayed 300 times each
-  (capture seconds, then ms an update over 3 updates, CUDA events);
+- ``fused``: the script's RK4 update, the solve's forward pass and its
+  vector-Jacobian product one kernel launch each (``ops/node_rk4.py``;
+  first update seconds, then ms an update over 3 updates, CUDA events,
+  and each kernel's ms over 3 launches);
+- ``interval graphs``: the RK4 update with the size rule forced to 0, the
+  interval's forward and vector-Jacobian product captured once and
+  replayed 300 times each (capture seconds, then ms an update over 3
+  updates);
 - ``interval eager``: the same code with no graph (1 update, host clock);
 - ``autograd eager``: backprop through ``odeint_rk4`` (each interval
   rematerialised by ``torch.utils.checkpoint``) and a capturable Adam step
@@ -28,12 +33,15 @@ import os
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import train_neural_ode_torch as NO  # noqa: E402
+
+from ionflux_torch.ops import node_rk4 as NR  # noqa: E402
 
 
 def _ms(fn, reps: int) -> float:
@@ -85,11 +93,22 @@ def main(argv=None) -> int:
 
     tr = trainer(adjoint=False)
     first = _host_s(tr.step)
+    packed = tr.plan.pack(tr.flat)
+    ys, starts = NR._fwd_cuda(tr.plan, proto, ts, y0, packed)
+    g_ys = torch.ones_like(ys)
+    emit(way="fused", cluster=tr.plan.csize, first_update_s=first,
+         ms=_ms(tr.step, 3),
+         fwd_ms=_ms(lambda: NR._fwd_cuda(tr.plan, proto, ts, y0, packed), 3),
+         vjp_ms=_ms(lambda: NR._vjp_cuda(tr.plan, proto, ts, starts, g_ys,
+                                         packed), 3))
+    with mock.patch.object(NR, "node_cluster", lambda *_: 0):
+        tr = trainer(adjoint=False)
+    first = _host_s(tr.step)
     emit(way="interval graphs", capture_s=tr.capture_s,
          first_update_s=first, ms=_ms(tr.step, 3))
     tr = trainer(adjoint=False, graph=False)
     emit(way="interval eager", ms=1e3 * _host_s(tr.step))
-    tr = trainer(adjoint=False)
+    tr = trainer(adjoint=False, graph=False)
     side = torch.cuda.Stream()       # the capture's warm-up stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):

@@ -19,8 +19,10 @@ package's leaf layout) to --outdir (default out/neural-ode-torch).
 ``$IONFLUX_REFERENCE/test-protocols/ap2hz.csv`` and fails, naming the file,
 where it is absent; any other value takes the 20 mV activation protocol at
 1 ms knots.  Runs on the card unless ``--device cpu`` is given.  On the card
-an RK4-mode update replays two CUDA graphs, the RK4 interval's forward and
-its vector-Jacobian product, 300 times each (``Trainer``); the adjoint
+an RK4-mode update runs two hand-written kernels, the solve's forward pass
+and its vector-Jacobian product (``ops/node_rk4.py``), where the net fits
+their cluster, and else replays two CUDA graphs, the RK4 interval's forward
+and its vector-Jacobian product, 300 times each (``Trainer``); the adjoint
 mode runs around the solves' own captured blocks.
 """
 
@@ -44,11 +46,12 @@ from ionflux_torch.models import nnf_init, nnf_rhs  # noqa: E402
 from ionflux_torch.models.nn import MLP, NNfParams  # noqa: E402
 from ionflux_torch.models.registry import HH_B06, SYNTHETIC  # noqa: E402
 from ionflux_torch.observe import add_noise, gate_current, mae  # noqa: E402
+from ionflux_torch.ops import node_rk4 as NR  # noqa: E402
 from ionflux_torch.solver import odeint_adjoint, odeint_rk4  # noqa: E402
 from ionflux_torch.solver.fixed import _interval  # noqa: E402
 from ionflux_torch.studies import REFDIR  # noqa: E402
 from ionflux_torch.utils.ckpt import save_pytree  # noqa: E402
-from ionflux_torch.utils.timing import span  # noqa: E402
+from ionflux_torch.utils.timing import count, span  # noqa: E402
 
 LR = 3e-4
 RK4_SUB = 8
@@ -87,12 +90,22 @@ class Trainer:
     backward pass does: the forward pass keeps the state at each output
     time; the backward pass recomputes each interval and takes its
     vector-Jacobian product, last interval first, adding each interval's
-    parameter gradient into ``acc``.  On the card (with ``graph``) the
-    interval's forward and its vector-Jacobian product are each captured
-    once as a CUDA graph (``capture_s``) and replayed 300 times an update;
-    the graphs read the trainer's own parameters, which Adam updates in
-    place.  ``graph=False`` runs the same code eagerly (the reference the
-    replays equal bit for bit).  The adjoint mode backpropagates through
+    parameter gradient into ``acc``.  On the card (with ``graph``) an
+    update takes one of two paths, by what the trainer can observe:
+
+    - ``fused``: where the net's slices fit the kernels' cluster (the size
+      rule ``ops/node_rk4.py::node_cluster``), the whole solve's forward
+      pass and its vector-Jacobian product are one kernel launch each
+      (``NodeRK4``), summing each interval's parameter gradient as the
+      graphs do; the results differ from the graphs' only in float32
+      summation order;
+    - else the interval's forward and its vector-Jacobian product are each
+      captured once as a CUDA graph (``capture_s``) and replayed 300 times
+      an update; the graphs read the trainer's own parameters, which Adam
+      updates in place.
+
+    ``graph=False`` runs the same code eagerly (the reference the replays
+    equal bit for bit).  The adjoint mode backpropagates through
     ``odeint_adjoint`` (its solves replay their own graphs)."""
 
     def __init__(self, net, proto, ts, y0, data, *, adjoint: bool,
@@ -111,8 +124,14 @@ class Trainer:
                                     capturable=cuda, foreach=cuda)
         self.acc = [torch.zeros_like(p) for p in self.flat]
         self.graphs = None                # (forward, vjp) once captured
-        self.use_graphs = cuda and graph and not adjoint
+        sizes = [int(self.flat[0].shape[0])] + [int(w.shape[1])
+                                                for w in self.flat[0::2]]
+        on_card = cuda and graph and not adjoint
+        self.fused = on_card and NR.node_cluster(sizes, RK4_SUB) > 0
+        self.use_graphs = on_card and not self.fused
         self.capture_s = None             # host seconds the capture took
+        if self.fused:
+            self.plan = NR.Plan(sizes, RK4_SUB, HH_B06, ts.device)
 
     @property
     def net(self) -> list:
@@ -178,6 +197,10 @@ class Trainer:
 
     def states(self) -> torch.Tensor:
         """ys [T, S] of the current net by the RK4 intervals (no grad)."""
+        if self.fused:
+            with torch.no_grad():
+                return NR.node_rk4(self.plan, self.proto, self.ts, self.y0,
+                                   self.flat)
         if self.use_graphs and self.graphs is None:
             self._capture()
         ys, y = [self.y0], self.y0
@@ -193,7 +216,8 @@ class Trainer:
         update is a ``node.step`` span (``utils/timing.py``); in RK4 mode
         its phases are the spans ``node.forward`` (``states()``),
         ``node.loss``, ``node.backward`` (the interval VJPs, last first)
-        and ``node.adam``."""
+        and ``node.adam``, and the count ``node.fused_intervals`` reads the
+        intervals the fused kernels ran (0 on the graphs or eagerly)."""
         with span("node.step", adjoint=self.adjoint):
             if self.adjoint:
                 self.opt.zero_grad(set_to_none=True)
@@ -201,6 +225,10 @@ class Trainer:
                 loss.backward()
                 self.opt.step()
                 return loss.detach()
+            count("node.fused_intervals",
+                  self.ts.shape[0] - 1 if self.fused else 0)
+            if self.fused:
+                return self._fused_step()
             with span("node.forward"):
                 ys = self.states()
             with span("node.loss"), torch.enable_grad():
@@ -219,6 +247,23 @@ class Trainer:
                     p.grad = a
                 self.opt.step()
             return loss.detach()
+
+    def _fused_step(self) -> torch.Tensor:
+        """The fused update: ys by node_fwd, the loss and its cotangent of
+        ys, every leaf's gradient by node_vjp, Adam."""
+        with span("node.forward"), torch.enable_grad():
+            ys = NR.node_rk4(self.plan, self.proto, self.ts, self.y0,
+                             self.flat)
+        with span("node.loss"), torch.enable_grad():
+            loss = self._loss_of(ys)
+            (g_ys,) = torch.autograd.grad(loss, ys, retain_graph=True)
+        with span("node.backward"):
+            grads = torch.autograd.grad(ys, self.flat, g_ys)
+        with span("node.adam"):
+            for p, g in zip(self.flat, grads):
+                p.grad = g
+            self.opt.step()
+        return loss.detach()
 
 
 class Run(NamedTuple):

@@ -70,7 +70,8 @@ def test_port_imports_neither_jax_nor_ionflux():
         "sys.path[:0] = ['scripts', 'tests']\n"
         "scripts = sorted(os.path.basename(f)[:-3]\n"
         "                 for f in glob.glob('scripts/*_torch.py'))\n"
-        "for n in scripts + ['_r_replay_standins', '_multiproc_workers']:\n"
+        "for n in scripts + ['_r_replay_standins', '_multiproc_workers',\n"
+        "          '_node_reference']:\n"
         "    importlib.import_module(n)\n"
         "assert {'table_2_torch', 'table_s1_torch', 'figure_4_torch',\n"
         "        'figure_4_s_torch', 'figure_5_torch', 'figure_6_torch',\n"
@@ -1201,13 +1202,18 @@ def test_adjoint_backward_captures_once_across_intervals_on_card(card):
 
 
 @pytest.mark.cuda
-def test_neural_ode_step_graph_replays_the_eager_step_on_card(card):
-    """The neural-ODE script's RK4-mode updates on the card: with the
-    interval's two captured graphs replayed, three updates give the eager
-    updates' losses and net bit for bit."""
+def test_neural_ode_step_graph_replays_the_eager_step_on_card(card,
+                                                              monkeypatch):
+    """The neural-ODE script's RK4-mode updates on the card through the
+    graph path (the fused kernels' size rule forced to refuse the net):
+    with the interval's two captured graphs replayed, three updates give
+    the eager updates' losses and net bit for bit."""
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import train_neural_ode_torch as T
 
+    from ionflux_torch.ops import node_rk4 as NR
+
+    monkeypatch.setattr(NR, "node_cluster", lambda sizes, n_sub: 0)
     proto = TP.activation_protocol(20.0, 1.0, device=card)
     ts = torch.linspace(0.0, 300.0, 31, device=card)
     data = torch.linspace(0.0, 1.0, 31, device=card)
@@ -1218,6 +1224,7 @@ def test_neural_ode_step_graph_replays_the_eager_step_on_card(card):
                        adjoint=False, graph=graph)
         runs[graph] = ([tr.step() for _ in range(3)], tr)
     assert runs[True][1].graphs is not None and runs[False][1].graphs is None
+    assert not runs[True][1].fused
     for a, b in zip(runs[False][0], runs[True][0]):
         assert torch.equal(a, b)
     for a, b in zip(runs[False][1].flat, runs[True][1].flat):
