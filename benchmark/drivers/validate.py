@@ -17,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark import flops, gen
+from benchmark import gen
+from benchmark import spans as S
 from benchmark.reference import validate as RV
 
 POOL_SEED = 0      # the members' perturbation stream, the same every run
@@ -89,19 +90,26 @@ class Run:
         return maes.size, 1, int(not np.isfinite(maes).all())
 
     def trace_info(self) -> dict:
-        """The accepted and executed trips of each segment, read from the
-        launch records of one more chain (outside the traced window)."""
-        segs, knots = flops.chain_trips(self.E, self.layers, self.gate,
-                                        self.kind, self.names, self.voltages,
-                                        self.kw)
+        """The shapes B1's work is counted on: layer sizes, members, lanes
+        (members x recordings) and the knots of a segment on every lane;
+        the accepted trips are the traced calls' own counts
+        (benchmark/spans.py).  Logs the last call's counts by segment."""
         sizes = [int(self.layers[0][0].shape[1])] + [
             int(w.shape[2]) for w, _ in self.layers]
         p, q = self.layers[0][0].shape[0], len(self.names)
-        b1 = flops.b1_work(segs, p * q, sizes, self.kind,
-                           knots_per_segment=knots * q, members=p)
-        self.cell.log(f"segments (executed, accepted trips): "
-                      f"{[(s['n_valid'], s['n_acc']) for s in segs]}")
-        return dict(segments=segs, call_ops=b1["b1_ops"], **b1)
+        seg = min(int(self.kw["seg_samples"]),
+                  max(len(v) for v, _ in self.voltages.values()))
+        rec = S.recorded()
+        if rec is not None:
+            last = max((s.id for s in rec[0] if s.name == "rollout"),
+                       default=None)
+            trips = [[c.value for c in rec[1] if c.root == last
+                      and c.name == n]
+                     for n in ("b1.trips_executed", "b1.trips_accepted")]
+            self.cell.log(f"segments (executed, accepted trips) of the "
+                          f"last call: {list(zip(*trips))}")
+        return dict(sizes=sizes, kind=self.kind, members=p, lanes=p * q,
+                    knots=(seg + 1) * q)
 
     def release(self) -> None:
         self.params = None

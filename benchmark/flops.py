@@ -9,8 +9,6 @@ the lanes requested (not padded), an update's forward and backward pass
 
 from __future__ import annotations
 
-import torch
-
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 # one gate's analytic rate: 2 exp (one operation each) and 6 multiplies
@@ -57,44 +55,19 @@ def validate_in_bytes(sizes, members: int, knots: int) -> int:
     return 4 * (members * mlp_work(sizes)[1] + knots)
 
 
-def b1_work(segments, lanes: int, sizes, kind: str, knots_per_segment: int,
+def b1_work(accepted, lanes: int, sizes, kind: str, knots_per_segment: int,
             members: int) -> dict:
-    """B1's operations and bound over a chain's segments (each with its
-    accepted steps ``n_acc``), summed."""
+    """B1's operations and bound over a chain's segments, given each
+    segment's accepted steps (``accepted``; a negative count, a launch that
+    fell short, as 0), summed."""
     rhs = rhs_ops(sizes, kind)
+    in_bytes = validate_in_bytes(sizes, members, knots_per_segment)
     ops = ms = 0.0
-    for s in segments:
-        n = max(int(s["n_acc"]), 0)
+    for n in accepted:
+        n = max(int(n), 0)
         ops += n * DP5_STAGES * rhs * lanes
-        ms += trip_bound(n, lanes, rhs, validate_in_bytes(
-            sizes, members, knots_per_segment))[0]
+        ms += trip_bound(n, lanes, rhs, in_bytes)[0]
     return {"b1_ops": ops, "b1_bound_ms": ms}
-
-
-def chain_trips(E, layers, gate, kind, names, voltages, kw) -> list[dict]:
-    """Accepted and executed trips of each segment of the validation chain
-    on these inputs, read from the launch records of one more run of it
-    (the reading of scripts/probe_validation_chain_torch.py)."""
-    from ionflux_torch.models.registry import HHParams
-    from ionflux_torch.ops import fused_solve as F
-
-    hh = HHParams(*gate)
-    _, dt, seg, _, _, seg_v, _ = E._segment_recordings(
-        names, seg_samples=kw["seg_samples"], chunk=kw["chunk"],
-        voltages=voltages)
-    stats = []
-
-    def consume(b, recs):
-        stats.append(torch.stack([recs.n_valid.float(),
-                                  recs.n_acc.float()]))
-
-    F.fused_nnf_popsweep_chained(
-        layers, hh, torch.as_tensor(seg_v, device=layers[0][0].device),
-        proto_dt=float(dt), t_end=seg * float(dt), rtol=kw["rtol"],
-        atol=kw["atol"], trips=kw["trips"],
-        base_hh=hh if kind == "nnd" else None, consume=consume)
-    return [dict(n_valid=int(r[0]), n_acc=int(r[1]))
-            for r in torch.stack(stats).tolist()], int(seg) + 1
 
 
 def surface_update_ops(sizes, points: int) -> float:

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import importlib
 
+from benchmark import flops
+
 
 def recorded():
     """(spans, counts) that the program's recorder holds, or None where the
@@ -55,6 +57,21 @@ def traced_counts(tr, root: str, name: str) -> list:
     spans, counts = found
     ids = {s.id for s in spans}
     return [c.value for c in counts if c.name == name and c.root in ids]
+
+
+def b1_work(tr):
+    """B1's operations and bound (``flops.b1_work``) over the segments of
+    the traced calls, from the accepted trips the graph path counted for
+    each (``b1.trips_accepted`` in the ``rollout`` span) and the shapes
+    drivers/validate.py's ``trace_info`` gives (``tr["info"]``: sizes, kind,
+    members, lanes, knots); None where nothing was counted."""
+    accepted = traced_counts(tr, "rollout", "b1.trips_accepted")
+    if not accepted:
+        return None
+    info = tr["info"]
+    return flops.b1_work(accepted, info["lanes"], info["sizes"],
+                         info["kind"], knots_per_segment=info["knots"],
+                         members=info["members"])
 
 
 def untraced_ms(tr, name: str):

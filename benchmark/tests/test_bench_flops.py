@@ -10,6 +10,9 @@ def test_mlp_work_by_hand():
     assert F.mlp_work([2, 3, 4, 1]) == (22, 30)
     macs, params = F.mlp_work([2] + [200] * 6 + [1])
     assert (macs, params) == (200_600, 201_801)
+    # s08 of Table S1: 10 hidden 500 x 500 layers
+    macs, params = F.mlp_work([2] + [500] * 11 + [1])
+    assert (macs, params) == (2_501_500, 2_507_001)
 
 
 def test_rhs_ops_by_hand():
@@ -29,8 +32,7 @@ def test_trip_bound_by_hand():
 
 
 def test_b1_work_sums_accepted_steps_only():
-    segs = [{"n_valid": 12, "n_acc": 10}, {"n_valid": 9, "n_acc": -3}]
-    out = F.b1_work(segs, 4, [2, 3, 1], "nnf", knots_per_segment=5,
+    out = F.b1_work([10, -3], 4, [2, 3, 1], "nnf", knots_per_segment=5,
                     members=2)
     assert out["b1_ops"] == 10 * 6 * (2 * 9 + 8) * 4
     in_bytes = 4 * (2 * 13 + 5)

@@ -1,16 +1,18 @@
-"""The five readers of the program's own spans and counts (benchmark/
+"""The seven readers of the program's own spans and counts (benchmark/
 spans.py): on a synthetic trace with recorded spans, which calls they take
 (the traced call from the trace's host events, the untraced ones just
 before) and None where there is nothing to read; end to end on the CPU at a
-toy size; and on the card, that the graph path's trip counts equal
-``flops.chain_trips``, that a span shares the profiler's clock, and that
-nothing the program records reaches the trace's device operations."""
+toy size; and on the card, that the graph path's trip counts equal the
+launch records of one more eager chain, that a span shares the profiler's
+clock, and that nothing the program records reaches the trace's device
+operations."""
 
 import time
 
 import pytest
 import torch
 
+from benchmark import flops
 from benchmark import harness as H
 from benchmark import spans as S
 from benchmark.tests.test_bench_faults import (SEED, tiny_node_mix,
@@ -19,8 +21,10 @@ from benchmark.tests.test_bench_faults import (SEED, tiny_node_mix,
 from ionflux_torch.utils import timing
 from ionflux_torch.utils.timing import Count, Span
 
-NAMES = ("b1_accepted_share", "b1_trip_us", "validate_prep_ms",
-         "train_enqueue_ms", "node_enqueue_ms")
+NAMES = ("b1_accepted_share", "b1_trip_us", "b1_roofline", "mfu.validate",
+         "validate_prep_ms", "train_enqueue_ms", "node_enqueue_ms")
+# the shapes drivers/validate.py's trace_info gives
+INFO = dict(sizes=[2, 3, 1], kind="nnf", members=2, lanes=4, knots=10)
 MS = 1_000_000          # ns
 
 
@@ -34,8 +38,8 @@ def _span(i, name, start_ms, end_ms, parent=None, root=None):
 
 def _validate_trace(monkeypatch):
     """Two untraced rollouts before the trace's window (100-200 ms), one
-    inside it, one after; each with its counts; a trace of two trip kernels
-    and three idle gaps."""
+    inside it, one after; each with its counts (two segments); a trace of
+    two trip kernels and three idle gaps."""
     spans, counts = [], []
     for k, (t, run, acc) in enumerate([(10, 900, 400), (40, 800, 300),
                                        (120, 1000, 450), (300, 700, 10)]):
@@ -60,7 +64,7 @@ def _validate_trace(monkeypatch):
         # 126-128 ms (inside), 135-140 ms (outside)
         gaps=[(115 * us, 125 * us), (126 * us, 128 * us),
               (135 * us, 140 * us)],
-        calls=1)
+        calls=1, info=INFO, plain_s=0.03, peak=67e12)
 
 
 def test_validate_readers_take_the_traced_call(monkeypatch):
@@ -68,6 +72,13 @@ def test_validate_readers_take_the_traced_call(monkeypatch):
     assert read("b1_accepted_share", tr) == pytest.approx(45.0)
     assert read("b1_trip_us", tr) == pytest.approx(5000.0 / 1000)
     assert read("validate_prep_ms", tr) == pytest.approx(7.0)
+    # B1's work on the traced call's two segments of 225 accepted trips
+    work = flops.b1_work([225, 225], 4, [2, 3, 1], "nnf",
+                         knots_per_segment=10, members=2)
+    assert read("b1_roofline", tr) == pytest.approx(
+        100.0 * work["b1_bound_ms"] / 5.0)
+    assert read("mfu.validate", tr) == pytest.approx(
+        100.0 * work["b1_ops"] / (0.03 * 67e12))
     tr["calls"] = 2
     assert read("validate_prep_ms", tr) == pytest.approx(3.5)
 
@@ -113,12 +124,14 @@ def test_no_trip_kernel_reads_no_trip_time(monkeypatch):
     tr = _validate_trace(monkeypatch)
     tr["ops"] = [op for op in tr["ops"] if "trip_kernel" not in op[0]]
     assert read("b1_trip_us", tr) is None
+    assert read("b1_roofline", tr) is None
     assert read("b1_accepted_share", tr) == pytest.approx(45.0)
+    assert read("mfu.validate", tr) > 0.0
 
 
 @pytest.mark.parametrize("workload,mix,names", [
     ("nnf.validate", tiny_validate_mix,
-     ("b1_accepted_share", "validate_prep_ms")),
+     ("b1_accepted_share", "validate_prep_ms", "mfu.validate")),
     ("nnd.train", tiny_surface_mix, ("train_enqueue_ms",)),
     ("nnf.node_train", tiny_node_mix, ("node_enqueue_ms",))])
 def test_traced_run_reports_the_span_metrics_on_the_cpu(workload, mix,
@@ -135,6 +148,7 @@ def test_traced_run_reports_the_span_metrics_on_the_cpu(workload, mix,
     for name in names:
         assert out["metrics"][name]["value"] >= 0.0, name
     assert "b1_trip_us" not in out["metrics"]
+    assert "b1_roofline" not in out["metrics"]
     if "b1_accepted_share" in names:
         assert 0.0 < out["metrics"]["b1_accepted_share"]["value"] <= 100.0
 
@@ -142,11 +156,36 @@ def test_traced_run_reports_the_span_metrics_on_the_cpu(workload, mix,
 # On the card
 
 
+def eager_chain_trips(run) -> list[tuple[int, int]]:
+    """(executed, accepted) trips of each segment of one more eager chain
+    on a validate run's inputs, read from its launch records (the reading
+    of scripts/probe_validation_chain_torch.py::chain_segments)."""
+    from ionflux_torch.models.registry import HHParams
+    from ionflux_torch.ops import fused_solve as F
+
+    hh, kw = HHParams(*run.gate), run.kw
+    _, dt, seg, _, _, seg_v, _ = run.E._segment_recordings(
+        run.names, seg_samples=kw["seg_samples"], chunk=kw["chunk"],
+        voltages=run.voltages)
+    stats = []
+
+    def consume(b, recs):
+        stats.append(torch.stack([recs.n_valid.float(),
+                                  recs.n_acc.float()]))
+
+    F.fused_nnf_popsweep_chained(
+        run.layers, hh, torch.as_tensor(seg_v, device=run.cell.device),
+        proto_dt=float(dt), t_end=seg * float(dt), rtol=kw["rtol"],
+        atol=kw["atol"], trips=kw["trips"],
+        base_hh=hh if run.kind == "nnd" else None, consume=consume)
+    return [(int(r[0]), int(r[1])) for r in torch.stack(stats).tolist()]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["nnf.validate", "nnd.validate"])
 def test_graph_path_trips_equal_chain_trips(name, card):
     """A replayed validation call's b1.trips_* equal, segment by segment,
-    the launch records of one more eager chain (flops.chain_trips)."""
+    the launch records of one more eager chain."""
     cell = H.Cell.find(name, seed=2**31 + 91)
     cell.device = card
     run = cell.driver().setup(cell)
@@ -159,9 +198,9 @@ def test_graph_path_trips_equal_chain_trips(name, card):
     got = {n: [c.value for c in timing.counts() if c.root == top.id
                and c.name == n]
            for n in ("b1.trips_executed", "b1.trips_accepted")}
-    segs = run.trace_info()["segments"]
-    assert got["b1.trips_executed"] == [s["n_valid"] for s in segs]
-    assert got["b1.trips_accepted"] == [s["n_acc"] for s in segs]
+    segs = eager_chain_trips(run)
+    assert got["b1.trips_executed"] == [n for n, _ in segs]
+    assert got["b1.trips_accepted"] == [a for _, a in segs]
     run.release()
 
 
