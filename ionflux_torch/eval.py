@@ -49,6 +49,7 @@ from ionflux_torch.ops.fused_solve import (
     fused_nnf_popsweep_chained,
     fused_nnf_popsweep_solve_ft,
     fused_nnf_solve_ft,
+    popsweep_plan,
 )
 from ionflux_torch.solver import (odeint, odeint_adams, odeint_chained,
                                   odeint_rosenbrock, odeint_vcabm)
@@ -546,7 +547,13 @@ def population_rollout_maes(kind: str, pop_params, names: list[str],
     (the one read of the results).  The chain also keeps
     each segment's executed and accepted trips on the device, graph or
     not; the fetch reads them with the sums and records them as the counts
-    ``b1.trips_executed`` and ``b1.trips_accepted`` (``segment=b``)."""
+    ``b1.trips_executed`` and ``b1.trips_accepted`` (``segment=b``).  Beside
+    them it records, from the launch's plan (``popsweep_plan``: the pass the
+    card's launch takes, recorded on the CPU too; a replay's is the plan
+    stored with its graph), ``b1.column_passes`` (the ring's passes over
+    the widest layer; 0 where the launch takes mlp()) and
+    ``b1.stream_bytes`` (the packed member weights one right-hand side
+    reads, padding included: the ring's rows, or mlp()'s own weights)."""
     nets, rg, hh = _pop_split(kind, pop_params)
     dev = nets[0][0].device
     p_mem = nets[0][0].shape[0]
@@ -598,6 +605,9 @@ def population_rollout_maes(kind: str, pop_params, names: list[str],
                 # [segments, 2]: each launch's executed and accepted trips
                 return acc, mask, torch.stack(n_out).view(-1, 2)
 
+            sizes = [nets[0][0].shape[1]] + [w.shape[2] for w, _ in nets]
+            _, info, stream = popsweep_plan(p_mem, q_req, sizes)
+            plan = (info.get("column_passes", 0), stream)
             inputs = [torch.as_tensor(x, device=dev)
                       for x in (seg_v, vsegs, tsegs, wsegs)]
             inputs += [x for layer in nets for x in layer]
@@ -616,11 +626,13 @@ def population_rollout_maes(kind: str, pop_params, names: list[str],
         if g is not None:
             with span("rollout.replay"):
                 acc, mask, n_trips = g.replay()
+            plan = g.plan
         elif key is not None:
             with span("rollout.capture"):
                 acc, mask, n_trips = chain(*inputs)
-                _ROLLOUT_GRAPHS[key] = Graph(chain,
-                                             *[x.clone() for x in inputs])
+                g = Graph(chain, *[x.clone() for x in inputs])
+                g.plan = plan
+                _ROLLOUT_GRAPHS[key] = g
         else:
             acc, mask, n_trips = chain(*inputs)
         with span("rollout.fetch"):
@@ -629,4 +641,6 @@ def population_rollout_maes(kind: str, pop_params, names: list[str],
             for b, (run, accepted) in enumerate(n_trips.cpu().tolist()):
                 count("b1.trips_executed", run, segment=b)
                 count("b1.trips_accepted", accepted, segment=b)
+                count("b1.column_passes", plan[0], segment=b)
+                count("b1.stream_bytes", plan[1], segment=b)
     return np.where(alive, sums / counts[None, :], np.inf)

@@ -660,6 +660,36 @@ def launch_plan(s: _Setup) -> tuple[int, dict]:
                                 p * -(-q // row_tile))
 
 
+def weight_stream_bytes(sizes, p: int, info: dict) -> int:
+    """Bytes of packed float32 member weights that one right-hand side of a
+    population launch reads, for ``population_pass``'s pass ``info``,
+    padding included, biases not: the ring's rows (``ring_geometry``'s
+    stride at the launch's stage cap) or mlp()'s row-major W0, W1, ..., for
+    each of the ``p`` members.  The cluster pass serves the sweeps only,
+    never these launches."""
+    if info["layer_pass"] == "ring":
+        _, stride, _ = ring_geometry(
+            sizes, False, _ring_cap(info["row_tile"], sizes, False))
+        return 4 * p * stride
+    return 4 * p * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+def _popsweep_rows(q_req: int) -> int:
+    """The popsweep's rows: Q padded to a power of two >= 2."""
+    return max(2, 1 << (q_req - 1).bit_length())
+
+
+def popsweep_plan(p: int, q_req: int, sizes) -> tuple[int, dict, int]:
+    """``launch_plan`` of a float32 popsweep launch of ``p`` members on
+    ``q_req`` protocol rows (no ``q_split``), from the shapes alone (no
+    setup, no launch), and the bytes of member weights one right-hand side
+    of it streams (``weight_stream_bytes``): (row tile, pass, bytes)."""
+    sizes = list(sizes)
+    rt, info = population_pass(min(MAX_ROW_TILE, _popsweep_rows(q_req)),
+                               sizes, False)
+    return rt, info, weight_stream_bytes(sizes, p, info)
+
+
 def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE,
                    layer_pass: str | None = None):
     """What both CUDA entry points take besides the outputs: the weights as
@@ -958,7 +988,7 @@ def _popsweep_setup(nets, rgate, protos_v, ts, proto_t0, proto_dt, t_end,
         raise ValueError(f"popsweep takes at most 128 members (got P={p})")
     q_split = int(q_split)
     # Q padded to a power of two >= 2 by repeating the last row
-    q = max(2, 1 << (q_req - 1).bit_length())
+    q = _popsweep_rows(q_req)
     if q_split < 1 or q % q_split:
         raise ValueError(f"q_split={q_split} must divide the padded "
                          f"protocol rows Q={q}")
