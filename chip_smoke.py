@@ -79,11 +79,18 @@ after:
   (n) also logs the probe's bound for the work its kernel does (column 0
       only) beside the whole product's, and its chain floor (64 trips x 6
       dependent operations x 4 cycles at the card's maximum SM clock);
-  (o) the ring pass of the popsweep (f32 and bf16) and of the population
-      solve on 4 members of the registry's 500-wide architecture (s07), and
+  (o) the ring pass of the popsweep (f32, split over clusters by the size
+      rule, and bf16) and of the population solve on 4 members of the
+      registry's 500-wide architecture (s07), and
       the mlp() pass of the bf16 popsweep on 4 members of 2 x 960 x 960 x 1
       (past the ring's widest bf16 layer), kernel vs plain within 5e-3
       (comparisons only);
+  (o') the split ring pass: 40 members of Table S1's s08 (10 x 500, two
+      column passes a layer unsplit; 401 MB of weights) on 5 activation
+      steps at 1 ms knots, one popsweep launch counted (the size rule must
+      split it over clusters),
+      kernel vs plain within 5e-3, and the launch at the rule's cluster
+      size against the unsplit one (bit for bit), with both times;
 
 Checkpoint validation on the recordings (studies.table_rollout_maes_pop's
 shape), counters set to 0 just before and read just after:
@@ -264,6 +271,10 @@ f32 and in bf16, the population solve) also carry their executed trips
 the two sweeps' rows (the cluster pass) their executed trips or steps, the
 milliseconds per trip or step, the cluster size and count and the mlp()
 pass's time on the same inputs (B2 also at clusters of 16 and at (b')).
+The split ring pass's row (o') carries its launches, executed trips, ms
+per trip, cluster size, the weight bytes one right-hand side streams and
+the unsplit launch's time on the same inputs; its bound takes that stream
+from HBM six times a trip.
 The f32 popsweep's ``launches`` adds (p)'s, (q)'s and (z)'s (its ranks')
 to the forward path's (``launches_by_path``), and its row carries (p)'s
 eager and replay seconds and ms per executed trip and (q)'s chain seconds, rescored rows,
@@ -511,6 +522,12 @@ PROBE_DESIGN = "thread-per-row-chain"
 PROBE_ROW_OPS, PROBE_CHAIN_OPS, FP32_LATENCY = 8, 6, 4
 WIDE_SIZES = (2, 500, 500, 1)   # the registry's s07 architecture
 MLP_BF16_SIZES = (2, 960, 960, 1)   # past the ring's widest bf16 layer
+# (o'): the split ring pass (RING_DESIGN's ring, a member's hidden columns
+# split over a thread-block cluster whose blocks exchange each layer's
+# outputs through distributed shared memory) at s08's widths, at the
+# validation cell's member count, on trips enough for 8 s of activation
+RING_SPLIT_DESIGN = "column-split-ring-on-cluster+dsmem-exchange"
+S_MEMBERS, S_TRIPS = 40, 4096
 
 
 def ring_fields(n_valid: int, ms: float) -> dict:
@@ -1112,7 +1129,8 @@ def d0_path(dev, rows):
 def wide_check(dev) -> None:
     """(o) The population launches' layer passes on wide nets: the ring at
     the registry's 500-wide architecture (s07), wider than one pass of its
-    threads, and mlp() just past the ring's widest bf16 layer (2 x 960 x
+    threads (the f32 popsweep split over clusters, as the size rule does
+    for such a net), and mlp() just past the ring's widest bf16 layer (2 x 960 x
     960 x 1, launch_plan's second branch): 4 members with weights 0.1
     sqrt(16 / fan-in) N(0, 1) and biases 0.01 N(0, 1) (``RandomState(5)``
     and ``RandomState(6)``), the popsweep in f32 and in bf16 on 9
@@ -1157,11 +1175,96 @@ def wide_check(dev) -> None:
         if info["layer_pass"] != want:
             raise RuntimeError(f"(o) {name}: took {info}, expected {want}")
         how = (f"ring pass, {info['row_tile']}-row tiles, "
-               f"{info['column_passes']} column pass(es)" if want == "ring"
+               f"{info['column_passes']} column pass(es), clusters of "
+               f"{info.get('cluster_size', 1)}" if want == "ring"
                else f"mlp() pass, {info['row_tile']}-row tiles")
         gate_diff(f"(o) {name}, 4 members of {'x'.join(map(str, sizes))} "
                   f"({how}; {ms_k:.1f} ms)", ys_k,
                   plain(net, HH_B06, v, ts, **kw, **extra))
+
+
+def split_check(dev, rows) -> None:
+    """(o') The split ring pass at the checkpoint-validation path's shapes:
+    S_MEMBERS members of Table S1's s08 (out/r1-tune/s08, 10 x 500) x (1 +
+    0.01 N(0, 1)) (``RandomState(7)``), 401 MB of packed weights, two
+    column passes a layer unsplit, on 5 activation steps at 1 ms knots
+    (one 8-row tile a member, as the validation cell's five recordings).  Counters set to 0
+    just before the counted call and read just after: one popsweep launch,
+    which the size rule must split (``last_pass``'s cluster size above 1).
+    Then, as comparisons: its gates against the plain version within
+    GATE_TOL, and the same setup's launch at the rule's C against the
+    unsplit launch (``_Setup.cluster`` = 1), records bit for bit, with
+    their times (CUDA events, after a warm-up each)."""
+    from ionflux_torch import protocols as P
+    from ionflux_torch.ops import fused_solve as F
+    from ionflux_torch.utils.ckpt import params_from_leaves
+
+    leaves = npz_leaves(os.path.join(ROOT, "out", "r1-tune", "s08",
+                                     "best-model.npz"))
+    macs, _ = mlp_work(leaves)
+    pop = params_from_leaves(population(leaves, S_MEMBERS, 7), "nnf", dev)
+    sizes = [2] + [w.shape[2] for w, _ in pop.net.layers]
+    levels = [float(x) for x in np.linspace(-60.0, 40.0, 5)]
+    v5 = P.stack([P.activation_protocol(x, 1.0, device=dev)
+                  for x in levels]).v
+    ts = torch.arange(50.0, 8000.0, 100.0, device=dev)
+    kw = dict(proto_dt=1.0, t_end=float(ts[-1]), trips=S_TRIPS)
+    kern = F.fused_nnf_popsweep_solve_ft
+
+    reset_counts()
+    ys_k = kern(pop.net, pop.rgate, v5, ts, **kw)
+    torch.cuda.synchronize()
+    launches = {"fused_nnf_popsweep_solve_ft": kern.launches}
+    check_counts("(o') split ring pass", launches,
+                 {"fused_nnf_popsweep_solve_ft": 1})
+    info = F._trip_solve_cuda.last_pass
+    csize = info.get("cluster_size", 1)
+    stream = F.weight_stream_bytes(sizes, S_MEMBERS, info)
+    log(f"(o') {S_MEMBERS} s08 members, {'x'.join(map(str, sizes[:3]))}"
+        f"...x1: pass {info}; {stream} bytes of weights a right-hand side")
+    if info["layer_pass"] != "ring" or csize <= 1:
+        raise RuntimeError(f"(o') the size rule did not split: {info}")
+
+    # ---- comparisons (after the path's counts were read) ------------------
+    ms_p, ys_p = cuda_ms(lambda: F.fused_nnf_popsweep_solve_ft_plain(
+        pop.net, pop.rgate, v5, ts, **kw), reps=1, warm=False)
+    err = gate_diff(f"(o') split ring pass at C = {csize}", ys_k, ys_p)
+    s = F._popsweep_setup(pop.net, pop.rgate, v5, ts, 0.0, 1.0,
+                          float(ts[-1]), 1e-5, 1e-7, S_TRIPS, None, None,
+                          True, False, 1)
+    ms_k, out_k = cuda_ms(lambda: F._trip_solve_cuda(s), reps=1)
+    if F._trip_solve_cuda.last_pass != info:
+        raise RuntimeError(f"(o') the setup's launch took "
+                           f"{F._trip_solve_cuda.last_pass}, not {info}")
+    ms_1, out_1 = cuda_ms(lambda: F._trip_solve_cuda(
+        dataclasses.replace(s, cluster=1)), reps=1)
+    if "cluster_size" in F._trip_solve_cuda.last_pass:
+        raise RuntimeError("(o') cluster = 1 did not take the unsplit pass")
+    n_k = out_k[3].tolist()
+    same = same_records(out_k, out_1, n_k[1])
+    rec = F.PopsweepRecords(*out_k[:3], out_k[3][0], out_k[3][1], S_MEMBERS,
+                            s.y0.shape[1], 5, out_k[4])
+    log(f"(o') n_acc/n_valid {n_k}; split at C = {csize} {ms_k:.3f} ms "
+        f"({1e3 * ms_k / n_k[1]:.1f} us per executed trip), unsplit "
+        f"{ms_1:.3f} ms ({1e3 * ms_1 / n_k[1]:.1f} us), plain {ms_p:.1f} "
+        f"ms; records {'bit-identical' if same else 'DIFFER'}; the counted "
+        f"call's gates equal this launch's: "
+        f"{bool(torch.equal(ys_k, rec.evaluate(ts)))}")
+    if not same:
+        raise RuntimeError("(o') the split and unsplit records differ")
+    # the bound: the executed trips' MLP operations on the real rows, and
+    # their weight stream (6 right-hand sides a trip) from HBM
+    b_ms, b_by = roofline(n_k[1] * 6 * 2 * macs * S_MEMBERS * 5,
+                          n_k[1] * 6 * stream)
+    rows.append(dict(
+        name="fused_nnf_popsweep_solve_ft[ring_split]", route="cuda",
+        source="ionflux_torch/csrc/fused_solve.cu",
+        replaces="ionflux/ops/pallas_solve.py:1459",
+        launches=launches["fused_nnf_popsweep_solve_ft"], max_abs_err=err,
+        ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, n_valid=n_k[1], ms_per_trip=ms_k / n_k[1],
+        design=RING_SPLIT_DESIGN, layer_pass="ring", cluster_size=csize,
+        stream_bytes=stream, unsplit_ms=ms_1))
 
 
 def validation_path(dev, rows) -> None:
@@ -3546,6 +3649,7 @@ def main() -> int:
     log(f"while/bf16/probe path done at {time.perf_counter() - t_start:.0f} "
         f"s")
     wide_check(dev)
+    split_check(dev, rows)
     validation_path(dev, rows)
     log(f"validation path done at {time.perf_counter() - t_start:.0f} s")
     d3, d5 = d0_path(dev, rows)

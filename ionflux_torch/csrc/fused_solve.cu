@@ -127,14 +127,36 @@
 //     wrapper's size rule (ops/fused_solve.py::ring_row_tile) picks the row
 //     tile whose stages and activation buffers fit (500-wide nets keep 32
 //     rows).
+//   * Split over a cluster (mlp_ring_split, f32, 8 or more rows), where the
+//     widest layer takes more than one column pass (the wrapper's
+//     ring_split): there one block walks each chunk of its member once a
+//     pass, and the members leave most SMs idle.  A (member, row tile)
+//     runs on a cluster of C blocks (2..4, the largest whose clusters the
+//     card holds at once); block `rank` streams its own row: layer 0 and
+//     the last layer whole, every other layer's columns [rank cols, (rank
+//     + 1) cols) as k-rows of [in, cols] (_ring_split_pack).  Each sliced
+//     layer's outputs go, after bias and leaky, into every block's next
+//     buffer through DSMEM, and the cluster meets at one barrier a layer;
+//     a slice takes one pass of the block's threads.  Every output's sum is
+//     the unsplit pass's fmaf chain over k = 0..in-1 in one block, and the
+//     lane state, controller and records are replicated in every block of
+//     the cluster as in mlp_cluster(): the records equal the unsplit
+//     launch's bit for bit.  Rank 0 writes them; one controller partial
+//     per cluster; the cluster and cooperative attributes together.
 //
 // What bounds B1 and B4 on this card: per trip each block streams its
 // member's weights six times (6 x 0.8 MB f32, 6 x 0.45 MB bf16).  At P = 64
-// the f32 set (51.6 MB) does not stay in the 50 MB L2, so a trip moves 310
-// MB from HBM: B4 (one row) runs at that bound, ~0.1 ms per trip.  B1 f32 at
-// 16 rows adds ~0.1 ms of FMAs from shared memory to it; bf16 adds its
-// mma.sync pass to the copies and chunk handovers.  chip_smoke.py and
-// scripts/probe_ring_pass_torch.py measure it; the numbers are in PERF.md.
+// the f32 set is 51.5 MB, just under the 52.4 MB (50 MiB) L2, yet B4 (one
+// row) runs at ~0.1 ms per trip, the time of 310 MB from HBM, so much of it
+// comes from HBM all the same.  B1 f32 at 16 rows adds ~0.1 ms of FMAs from
+// shared memory to it; bf16 adds its mma.sync pass to the copies and chunk
+// handovers.  Whether the set fits the L2 does not decide the split: 200-
+// wide members (one column pass) run 6-15% slower split at 40-66 members,
+// below and above the L2's size alike, and 500-wide members (two passes)
+// 2.0-3.3x faster, 40 s07 members inside the L2 as 40 s08 members (10 MB
+// each) outside it, where one block's ring moves ~20 GB/s unsplit.
+// chip_smoke.py and scripts/probe_ring_pass_torch.py measure it; the numbers
+// are in PERF.md.
 //
 // Arithmetic follows the plain version's f32 order: the stage combinations,
 // error norm and controller use round-to-nearest intrinsics so the compiler
@@ -367,17 +389,19 @@ __host__ __device__ constexpr int ring_tr() {
 //   bf16: the [round8(out), kcc + 8] slice of the transposed layer for
 //         k in [c kc, c kc + kcc), k zero-padded to a multiple of 16 and
 //         each row to kcc + 8 (so a warp's B-fragment loads hit distinct
-//         banks).
+//         banks);
+//   SPLIT (mlp_ring_split, f32): up to kc k-rows of [in, cl_cols[l]], the
+//         rank's columns.
 struct Chunk {
   int src, bytes;
 };
 
-template <typename WT>
+template <typename WT, bool SPLIT = false>
 __device__ __forceinline__ Chunk chunk_at(const Args& a, int l, int c) {
   const int din = a.sizes[l], dout = a.sizes[l + 1], kc = a.ring_kc[l];
   Chunk ch;
   if (sizeof(WT) == 4) {
-    const int cols = round_up(dout, 4);
+    const int cols = SPLIT ? a.cl_cols[l] : round_up(dout, 4);
     ch.src = a.ring_off[l] + c * kc * cols;
     ch.bytes = min(kc, din - c * kc) * cols * 4;
   } else {
@@ -418,15 +442,17 @@ struct Ring {
   int g;                // the next chunk the product takes
   int pl, pc;           // the next chunk to issue: layer, chunk
   int rows;             // the block's rows the product computes (>= 1)
+  int rank;             // split pass: the block's rank in its cluster
+  int ex;               // split pass: the exchanges made so far
 };
 
 // Issue the next chunk into the stage chunk g - 1 had.  All threads call it
 // (the cursor stays uniform); thread 0 issues.
-template <typename WT>
+template <typename WT, bool SPLIT = false>
 __device__ __forceinline__ void ring_issue(const Args& a, const WT* wm,
                                            Ring& rg) {
   if (threadIdx.x == 0) {
-    const Chunk ch = chunk_at<WT>(a, rg.pl, rg.pc);
+    const Chunk ch = chunk_at<WT, SPLIT>(a, rg.pl, rg.pc);
     const int stage = (rg.g + kStages - 1) % kStages;
     const uint32_t bar = smem_addr(rg.bar + stage);
     // the stage's last generic reads are ordered before the async write
@@ -450,7 +476,7 @@ __device__ __forceinline__ void ring_issue(const Args& a, const WT* wm,
 
 // Start the ring: set up the barriers and issue the first kStages - 1
 // chunks.  All threads call it.
-template <typename WT>
+template <typename WT, bool SPLIT = false>
 __device__ void ring_start(const Args& a, const WT* wm, Ring& rg,
                            unsigned char* base, uint64_t* bar) {
   rg.base = base;
@@ -466,21 +492,21 @@ __device__ void ring_start(const Args& a, const WT* wm, Ring& rg,
   __syncthreads();
   for (int i = 0; i < kStages - 1; ++i) {
     rg.g = i + 1 - kStages;  // so that chunk i goes to stage i
-    ring_issue<WT>(a, wm, rg);
+    ring_issue<WT, SPLIT>(a, wm, rg);
   }
   rg.g = 0;
 }
 
 // Wait for chunk g, free the stage of chunk g - 1 to the copy of chunk
 // g + kStages - 1, and return chunk g's stage.  All threads call it.
-template <typename WT>
+template <typename WT, bool SPLIT = false>
 __device__ __forceinline__ const unsigned char* ring_acquire(const Args& a,
                                                              const WT* wm,
                                                              Ring& rg) {
   const int stage = rg.g % kStages;
   bar_wait(rg.bar + stage, (rg.g / kStages) & 1);
   __syncthreads();  // every thread is done with chunk g - 1
-  ring_issue<WT>(a, wm, rg);
+  ring_issue<WT, SPLIT>(a, wm, rg);
   ++rg.g;
   return rg.base + stage * a.stage_bytes;
 }
@@ -490,6 +516,40 @@ __device__ void ring_drain(Ring& rg) {
   for (int i = 0; i < kStages - 1; ++i) {
     const int g = rg.g + i;
     bar_wait(rg.bar + g % kStages, (g / kStages) & 1);
+  }
+}
+
+// The cluster passes' exchange (mlp_cluster, mlp_ring_split): one barrier
+// of every thread of every block of the cluster, which orders the DSMEM
+// stores before it against the reads after it
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Store x[0..TR) at shared address `addr` of every block of the cluster
+// (the same offset in each block's window; 8- or 16-byte aligned for TR =
+// 2 or 4)
+template <int TR>
+__device__ __forceinline__ void push(uint32_t addr, const float* x,
+                                     int csize) {
+  for (int q = 0; q < csize; ++q) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(r)
+                 : "r"(addr), "r"(q));
+    if constexpr (TR == 4)
+      asm volatile(
+          "st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(r),
+          "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3])
+          : "memory");
+    else if constexpr (TR == 2)
+      asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(r),
+                   "f"(x[0]), "f"(x[1])
+                   : "memory");
+    else
+      asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(r), "f"(x[0])
+                   : "memory");
   }
 }
 
@@ -546,17 +606,29 @@ __device__ __forceinline__ void tile_f32(const float* xp, const float* wp,
 // covers NT * kThreads tasks (256 columns; 1,024 at RT = 1); a wider layer takes
 // several passes over each chunk, each task's running sums parked in dst
 // between chunks (stored and reloaded as they are, so the sum is the same
-// fmaf chain as in registers).
-template <int RT>
+// fmaf chain as in registers).  SPLIT (mlp_ring_split): a sliced layer is
+// the block's columns [j0, j0 + cl_cols[l]) of it, in one pass (the
+// wrapper's ring_split_fits), each output stored into every block of the
+// cluster; a whole layer is the unsplit pass's, from the rank's row.
+template <int RT, bool SPLIT = false>
 __device__ void ring_layer_f32(const Args& a, const float* wm, Ring& rg,
                                int l, const float* B, const float* src,
                                float* dst, bool last) {
   constexpr int RTS = ring_rts<RT>(), TR = ring_tr<RT>();
   // tiles per thread and pass: RT / TR row groups x 64 column groups
   constexpr int NT = (RT / TR * 64 + kThreads - 1) / kThreads;
-  const int din = a.sizes[l], dout = a.sizes[l + 1];
-  const int ncg = round_up(dout, 4) / 4, kc = a.ring_kc[l];
-  const int ldw = ncg * 4;
+  const int din = a.sizes[l], dout = a.sizes[l + 1], kc = a.ring_kc[l];
+  int ncg, ldw, j0 = 0;
+  bool sliced = false;
+  if constexpr (SPLIT) {
+    ldw = a.cl_cols[l];
+    ncg = ldw / 4;
+    sliced = ldw < dout;
+    if (sliced) j0 = rg.rank * ldw;
+  } else {
+    ncg = round_up(dout, 4) / 4;
+    ldw = ncg * 4;
+  }
   const int passes = (RT / TR * ncg + NT * kThreads - 1) / (NT * kThreads);
   if (passes == 1) {
     int tr[NT], cg[NT];
@@ -574,14 +646,33 @@ __device__ void ring_layer_f32(const Args& a, const float* wm, Ring& rg,
         for (int c = 0; c < 4; ++c) acc[i][r][c] = 0.f;
     }
     for (int c = 0; c < a.ring_nch[l]; ++c) {
-      const float* w =
-          reinterpret_cast<const float*>(ring_acquire<float>(a, wm, rg));
+      const float* w = reinterpret_cast<const float*>(
+          ring_acquire<float, SPLIT>(a, wm, rg));
       const int k0 = c * kc, kn = min(kc, din - k0);
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
         if (!on[i]) continue;
         tile_f32<RTS, TR>(src + k0 * RTS + tr[i] * TR, w + cg[i] * 4, kn,
                           ldw, acc[i]);
+      }
+    }
+    if constexpr (SPLIT) {
+      if (sliced) {  // a hidden layer: bias, leaky, into every block
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          if (!on[i]) continue;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int j = j0 + cg[i] * 4 + c;
+            if (j >= dout) continue;
+            const float bj = __ldg(B + j);
+            float x[TR];
+#pragma unroll
+            for (int r = 0; r < TR; ++r) x[r] = leaky(acc[i][r][c] + bj);
+            push<TR>(smem_addr(dst + j * RTS + tr[i] * TR), x, a.csize);
+          }
+        }
+        return;
       }
     }
 #pragma unroll
@@ -606,8 +697,8 @@ __device__ void ring_layer_f32(const Args& a, const float* wm, Ring& rg,
   // dst[j * RTS + r] (round4(dout) <= round16(wmax) columns fit it); only
   // the thread that owns a task touches its slots
   for (int c = 0; c < a.ring_nch[l]; ++c) {
-    const float* w =
-        reinterpret_cast<const float*>(ring_acquire<float>(a, wm, rg));
+    const float* w = reinterpret_cast<const float*>(
+        ring_acquire<float, SPLIT>(a, wm, rg));
     const int k0 = c * kc, kn = min(kc, din - k0);
     for (int ps = 0; ps < passes; ++ps) {
 #pragma unroll
@@ -818,8 +909,9 @@ __device__ float* mlp_ring(const Args& a, const WT* wm, const float* bm,
 // activations exchanged through DSMEM (see the header).
 // ---------------------------------------------------------------------------
 
-// The kernels' layer passes: mlp(), mlp_ring(), mlp_cluster()
-enum Pass { kGlobal = 0, kRing = 1, kCluster = 2 };
+// The kernels' layer passes: mlp(), mlp_ring(), mlp_cluster(),
+// mlp_ring_split()
+enum Pass { kGlobal = 0, kRing = 1, kCluster = 2, kSplit = 3 };
 
 // A cluster-pass thread task: TR rows x kClusterCols columns, TR = 2 at 8
 // and 16 rows, 4 at 32.  Each k-step loads the task's weights and inputs
@@ -831,43 +923,14 @@ constexpr int kClusterCols = 2;
 template <int RT>
 __host__ __device__ constexpr int cluster_tr() { return RT < 32 ? 2 : 4; }
 
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Store x[0..TR) at shared address `addr` of every block of the cluster
-// (the same offset in each block's window; 8- or 16-byte aligned for TR =
-// 2 or 4)
-template <int TR>
-__device__ __forceinline__ void push(uint32_t addr, const float* x,
-                                     int csize) {
-  for (int q = 0; q < csize; ++q) {
-    uint32_t r;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(r)
-                 : "r"(addr), "r"(q));
-    if constexpr (TR == 4)
-      asm volatile(
-          "st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(r),
-          "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3])
-          : "memory");
-    else if constexpr (TR == 2)
-      asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(r),
-                   "f"(x[0]), "f"(x[1])
-                   : "memory");
-    else
-      asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(r), "f"(x[0])
-                   : "memory");
-  }
-}
-
 // A block's shared state.  The activation buffers h0, h1 hold element
 // (row r, column k) at r * ld_r + k * ld_k: row-major [RT, wmax] for mlp(),
 // k-major [round16(wmax), ring_rts] for mlp_ring(); for mlp_cluster() h0 is
 // the layer-0 input and h1 the output, [2, ring_rts] each, k-major, and the
 // exchange buffers e0, e1, e2 are [wmax, ring_rts]; w is its slice of the
-// weights (cluster pass only).
+// weights (cluster pass only).  mlp_ring_split() has h0, h1 as
+// mlp_cluster() and two exchange buffers e0, e1 [round16(wmax),
+// ring_rts].
 template <int RT>
 struct Smem {
   float* e0;
@@ -893,7 +956,7 @@ struct Smem {
     e0 = base;
     e1 = e0 + ex(a.wmax, pass);
     e2 = e1 + ex(a.wmax, pass);
-    h0 = e2 + ex(a.wmax, pass);
+    h0 = e2 + (pass == kCluster ? ex(a.wmax, pass) : 0);
     h1 = h0 + act(a.wmax, pass);
     w = weights;
     k = h1 + act(a.wmax, pass);
@@ -908,21 +971,59 @@ struct Smem {
 
   // floats of one activation buffer, of one exchange buffer
   __host__ __device__ static int act(int wmax, int pass) {
-    return pass == kCluster ? 2 * ring_rts<RT>()
-           : pass == kRing  ? round_up(wmax, 16) * ring_rts<RT>()
-                            : RT * wmax;
+    return pass == kCluster || pass == kSplit ? 2 * ring_rts<RT>()
+           : pass == kRing ? round_up(wmax, 16) * ring_rts<RT>()
+                           : RT * wmax;
   }
   __host__ __device__ static int ex(int wmax, int pass) {
-    return pass == kCluster ? wmax * ring_rts<RT>() : 0;
+    return pass == kCluster ? wmax * ring_rts<RT>()
+           : pass == kSplit ? round_up(wmax, 16) * ring_rts<RT>()
+                            : 0;
   }
 
-  // (ops/fused_solve.py::cluster_smem_bytes repeats this for the size rule)
+  // (ops/fused_solve.py::cluster_smem_bytes and ring_split_smem_bytes
+  // repeat this for the size rules)
   static size_t bytes(int wmax, int pass) {
     return sizeof(float) * ((size_t)2 * act(wmax, pass) +
-                            (size_t)3 * ex(wmax, pass) + 7 * RT * 2 +
-                            3 * RT * 2 + 2 * RT) + sizeof(int) * 2 * RT;
+                            (size_t)(pass == kCluster ? 3 : 2) *
+                                ex(wmax, pass) +
+                            7 * RT * 2 + 3 * RT * 2 + 2 * RT) +
+           sizeof(int) * 2 * RT;
   }
 };
+
+// The split ring pass over all layers (B1's popsweep where the widest layer
+// takes more than one column pass; see the header).  s.h0 holds the layer-0 input (k-major,
+// the rows of rhs()); returns s.h1, holding the [RT] output.  Layer l
+// streams the rank's row through the ring: layer 0 whole into the exchange
+// buffer the next exchange reads, each sliced layer its columns into every
+// block's other buffer, then one cluster barrier; the last layer whole from
+// the last exchange's buffer into s.h1.  Exchange n (rg.ex, counted across
+// evaluations) writes e[n & 1] and layer 0 before it e[(n + 1) & 1], so
+// one barrier a layer orders both hazards: a block arrives only after it
+// has read its input and stored its outputs, and the buffer exchange n
+// writes was last read by exchange n - 1, before the barrier n - 1.  All
+// threads of every block of the cluster call it.
+template <int RT>
+__device__ float* mlp_ring_split(const Args& a, const Smem<RT>& s,
+                                 const float* wm, const float* bm, Ring& rg) {
+  const float* B = bm;
+  const float* src = s.h0;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const bool last = l == a.n_layers - 1;
+    const bool sliced = a.cl_cols[l] < a.sizes[l + 1];
+    float* dst = last ? s.h1 : (rg.ex + !sliced) & 1 ? s.e1 : s.e0;
+    ring_layer_f32<RT, true>(a, wm, rg, l, B, src, dst, last);
+    if (sliced) {
+      cluster_barrier();
+      ++rg.ex;
+    }
+    B += a.sizes[l + 1];
+    src = dst;
+  }
+  __syncthreads();
+  return s.h1;
+}
 
 // Copy this block's slice of the weights (its rank's packed row) into s.w,
 // one bulk copy per layer on one mbarrier, and wait for it.  All threads
@@ -1065,7 +1166,7 @@ template <int RT, typename WT, int PASS>
 __device__ void rhs(const Args& a, const Smem<RT>& s, const WT* wm,
                     const float* bm, Ring& rg, int row0, int nr, float t,
                     const float* ysrc, float* kdst) {
-  constexpr bool RING = PASS == kRing;
+  constexpr bool RING = PASS == kRing || PASS == kSplit;
   const int tid = threadIdx.x;
   if (tid < nr) {
     const float v = voltage(a, row0 + tid, t);
@@ -1079,6 +1180,8 @@ __device__ void rhs(const Args& a, const Smem<RT>& s, const WT* wm,
   const float* out;
   if constexpr (PASS == kCluster)
     out = mlp_cluster<RT>(a, s, nr);
+  else if constexpr (PASS == kSplit)
+    out = mlp_ring_split<RT>(a, s, wm, bm, rg);
   else if constexpr (RING)
     out = mlp_ring<RT, WT>(a, wm, bm, rg, s.h0, s.h1);
   else
@@ -1239,11 +1342,13 @@ __device__ __forceinline__ void block_stats(float m, int c, float* lmax,
 }
 
 // PASS picks the layer pass: mlp_ring() (B1, B4; its stages lead the
-// dynamic shared memory), mlp_cluster() (B2, f32; its weight slice leads)
+// dynamic shared memory), mlp_ring_split() (B1 in f32 on clusters, its
+// stages leading too), mlp_cluster() (B2, f32; its weight slice leads)
 // or mlp() (B2, f32)
 template <int RT, typename WT, int PASS>
 __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
-  constexpr bool RING = PASS == kRing, CLUSTER = PASS == kCluster;
+  constexpr bool SPLIT = PASS == kSplit;
+  constexpr bool RING = PASS == kRing || SPLIT, CLUSTER = PASS == kCluster;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(128) unsigned char dyn[];
   __shared__ float red_m;
@@ -1263,15 +1368,24 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
   const int row0 = (unit % a.tiles) * a.rt;
   const int nr = min(a.rt, a.q - row0);
   const bool lane = tid < nr;
-  const WT* wm = static_cast<const WT*>(a.w) + (size_t)member * a.w_stride;
+  // the split pass streams the rank's row of its member
+  const WT* wm = static_cast<const WT*>(a.w) +
+                 (SPLIT ? (size_t)member * a.csize + blockIdx.x % a.csize
+                        : (size_t)member) *
+                     a.w_stride;
   const float* bm = a.b + (size_t)member * a.b_stride;
   const size_t pq2 = (size_t)a.p * a.q * 2;
   const size_t lane_off = ((size_t)member * a.q + row0 + tid) * 2;
   int seq = 0;
   Ring rg{};
   rg.rows = max(1, min(nr, a.q_real - row0));
-  if (RING) ring_start<WT>(a, wm, rg, dyn, ring_bar);
+  if (RING) ring_start<WT, SPLIT>(a, wm, rg, dyn, ring_bar);
   if (CLUSTER) cluster_load<RT>(a, s, ring_bar, blockIdx.x % a.csize);
+  if (SPLIT) {
+    rg.rank = blockIdx.x % a.csize;
+    // every block of the cluster runs before any block stores into it
+    cluster_barrier();
+  }
 
   // ---- initial state: dead lanes (non-finite y0 or f0) reset to rest ----
   if (lane) {
@@ -1380,7 +1494,7 @@ __global__ void __launch_bounds__(kThreads, 1) trip_kernel(Args a) {
   // the ring runs kStages - 1 chunks ahead: let no copy outlive the block
   if (RING) ring_drain(rg);
   // no block leaves while a peer may still store into its shared memory
-  if (CLUSTER) cluster_barrier();
+  if (CLUSTER || SPLIT) cluster_barrier();
 }
 
 // ---------------------------------------------------------------------------
@@ -1511,6 +1625,37 @@ cudaError_t launch_coop(Kern kern, Args& a, int grid, size_t smem,
                                      args, smem, stream);
 }
 
+// The configuration of a launch of `kern` over `units` clusters of `csize`
+// blocks (the cluster attribute; the cooperative one in at[1] for the
+// caller to add), after setting the kernel's shared memory, and how many
+// such clusters the card holds at once
+template <typename Kern>
+cudaError_t cluster_config(Kern kern, int csize, int units, size_t smem,
+                           cudaLaunchAttribute (&at)[2],
+                           cudaLaunchConfig_t& cfg, int* most) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (csize > 8 &&
+      (err = cudaFuncSetAttribute(
+           kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+          cudaSuccess)
+    return err;
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = csize;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cfg = {};
+  cfg.gridDim = dim3(units * csize);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(most, (const void*)kern, &cfg);
+}
+
 // One launch of `kern` over `units` clusters of a.csize blocks, after
 // checking that they can all be resident at once.  Several clusters share
 // a grid barrier, so their launch is cooperative too: the runtime takes the
@@ -1519,63 +1664,82 @@ cudaError_t launch_coop(Kern kern, Args& a, int grid, size_t smem,
 template <typename Kern>
 cudaError_t launch_cluster(Kern kern, Args& a, int units, size_t smem,
                            cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  if (a.csize > 8 &&
-      (err = cudaFuncSetAttribute(
-           kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
-          cudaSuccess)
-    return err;
   cudaLaunchAttribute at[2];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = a.csize;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  at[1].id = cudaLaunchAttributeCooperative;
-  at[1].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(units * a.csize);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg;
   int most = 0;
-  if ((err = cudaOccupancyMaxActiveClusters(&most, (const void*)kern,
-                                            &cfg)) != cudaSuccess)
-    return err;
+  cudaError_t err = cluster_config(kern, a.csize, units, smem, at, cfg,
+                                   &most);
+  if (err != cudaSuccess) return err;
   if (most < units) return cudaErrorCooperativeLaunchTooLarge;
+  cfg.stream = stream;
   cfg.numAttrs = units > 1 ? 2 : 1;
   void* args[] = {&a};
   return cudaLaunchKernelExC(&cfg, (const void*)kern, args);
 }
 
 template <int RT, int PASS>
-cudaError_t launch_trip(Args& a, bool bf16, cudaStream_t stream) {
-  const size_t smem = Smem<RT>::bytes(a.wmax, PASS) +
-                      (PASS == kRing ? (size_t)kStages * a.stage_bytes
-                       : PASS == kCluster ? (size_t)a.cl_floats * 4
+size_t trip_smem(const Args& a) {
+  return Smem<RT>::bytes(a.wmax, PASS) +
+         (PASS == kRing || PASS == kSplit ? (size_t)kStages * a.stage_bytes
+          : PASS == kCluster              ? (size_t)a.cl_floats * 4
                                           : 0);
+}
+
+// Whether each sliced layer of the split pass takes one pass of the
+// block's threads at RT rows (ring_layer_f32 keeps no running sums of a
+// sliced layer)
+template <int RT>
+bool split_one_pass(const Args& a) {
+  constexpr int TR = ring_tr<RT>();
+  constexpr int NT = (RT / TR * 64 + kThreads - 1) / kThreads;
+  for (int l = 0; l < a.n_layers; ++l)
+    if (a.cl_cols[l] < a.sizes[l + 1] &&
+        RT / TR * (a.cl_cols[l] / 4) > NT * kThreads)
+      return false;
+  return true;
+}
+
+template <int RT, int PASS>
+cudaError_t launch_trip(Args& a, bool bf16, cudaStream_t stream) {
+  const size_t smem = trip_smem<RT, PASS>(a);
   const int grid = a.p * a.tiles;
-  if constexpr (PASS == kCluster)
-    return launch_cluster(trip_kernel<RT, float, kCluster>, a, grid, smem,
+  if constexpr (PASS == kCluster || PASS == kSplit) {
+    if (PASS == kSplit && !split_one_pass<RT>(a))
+      return cudaErrorInvalidValue;
+    return launch_cluster(trip_kernel<RT, float, PASS>, a, grid, smem,
                           stream);
-  if (!bf16) return launch_coop(trip_kernel<RT, float, PASS>, a, grid, smem,
-                                stream);
-  if constexpr (PASS == kGlobal || (PASS == kRing && RT > 1))
-    return launch_coop(trip_kernel<RT, __nv_bfloat16, PASS>, a, grid, smem,
-                       stream);
-  return cudaErrorInvalidValue;  // bf16 through the ring needs RT >= 8
+  } else {
+    if (!bf16) return launch_coop(trip_kernel<RT, float, PASS>, a, grid,
+                                  smem, stream);
+    if constexpr (PASS == kGlobal || (PASS == kRing && RT > 1))
+      return launch_coop(trip_kernel<RT, __nv_bfloat16, PASS>, a, grid, smem,
+                         stream);
+    return cudaErrorInvalidValue;  // bf16 through the ring needs RT >= 8
+  }
 }
 
 // The trip kernel at row-tile instantiation RT, through the pass the entry
 // point asks for
 template <int RT>
 cudaError_t launch_trip_rt(Args& a, int ring, bool bf16, cudaStream_t s) {
+  if (ring && a.csize > 1) return launch_trip<RT, kSplit>(a, false, s);
   if (ring) return launch_trip<RT, kRing>(a, bf16, s);
   if (a.csize > 1) return launch_trip<RT, kCluster>(a, false, s);
   return launch_trip<RT, kGlobal>(a, bf16, s);
+}
+
+// The clusters of csize blocks of the split pass's kernel at RT rows, at
+// its shared memory for layers up to wmax wide and stages of stage_bytes,
+// that the card holds at once
+template <int RT>
+cudaError_t split_clusters(int csize, int wmax, int stage_bytes, int* most) {
+  Args a{};
+  a.wmax = wmax;
+  a.stage_bytes = stage_bytes;
+  cudaLaunchAttribute at[2];
+  cudaLaunchConfig_t cfg;
+  return cluster_config(trip_kernel<RT, float, kSplit>, csize, 1,
+                        trip_smem<RT, kSplit>(a), at, cfg, most);
 }
 
 template <int RT>
@@ -1618,6 +1782,27 @@ bool init_cluster(Args& a, int csize, const int* cgeom, int cl_floats) {
   }
   a.csize = csize;
   a.cl_floats = cl_floats;
+  return true;
+}
+
+// The split ring pass's fields (csize blocks per cluster; per layer its
+// columns per block in cgeom[2 l + 1]); false if out of range: 2..8 blocks,
+// layer 0 and the last layer whole (round4(out) columns), every other layer
+// sliced: a multiple of 4 columns (the f32 tile's column group), fewer than
+// its outputs, csize slices covering them
+bool init_split(Args& a, int csize, const int* cgeom) {
+  a.csize = 1;
+  if (csize <= 1) return true;
+  if (csize > 8) return false;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int dout = a.sizes[l + 1], cols = cgeom[2 * l + 1];
+    const bool whole = l == 0 || l == a.n_layers - 1;
+    if (cols % 4 || (whole ? cols != round_up(dout, 4)
+                           : cols >= dout || cols * csize < dout))
+      return false;
+    a.cl_cols[l] = cols;
+  }
+  a.csize = csize;
   return true;
 }
 
@@ -1671,10 +1856,12 @@ extern "C" int ionflux_trip_solve(
     int ring, const int* geom, int stage_bytes, int q_real, int csize,
     const int* cgeom, int cl_floats, void* stream) {
   Args a;
+  // csize > 1: the sweeps' cluster pass, or with the ring its split
   if (!init_args(a, vpad, sizes, n_layers, p, q, n_pad, rt, scal) ||
-      block < 1 || trips % block != 0 ||
-      !init_cluster(a, csize, cgeom, cl_floats) ||
-      (csize > 1 && (ring || bf16)))
+      block < 1 || trips % block != 0 || (csize > 1 && bf16) ||
+      !(ring ? init_split(a, csize, cgeom)
+             : init_cluster(a, csize, cgeom, cl_floats)) ||
+      (a.csize > 1 && ring && rt == 1))
     return (int)cudaErrorInvalidValue;
   if (ring) {
     // geom: (offset, chunk depth, chunks) per layer, from the wrapper's
@@ -1751,6 +1938,22 @@ extern "C" int ionflux_while_solve(
   else
     err = launch_while<32>(a, s);
   return (int)err;
+}
+
+// The clusters of csize blocks of the split ring pass's kernel at rt rows
+// (its instantiation), for layers up to wmax wide and ring stages of
+// stage_bytes, that the current device holds at once: the wrapper's size
+// rule (ops/fused_solve.py::ring_split) asks once per device and shape
+extern "C" int ionflux_ring_split_clusters(int rt, int csize, int wmax,
+                                           int stage_bytes, int* most) {
+  *most = 0;
+  if (rt < 1 || rt > 32 || csize < 2 || csize > 8 || wmax < 1 ||
+      stage_bytes < 16 || stage_bytes % 16)
+    return (int)cudaErrorInvalidValue;
+  if (rt <= 8) return (int)split_clusters<8>(csize, wmax, stage_bytes, most);
+  if (rt <= 16)
+    return (int)split_clusters<16>(csize, wmax, stage_bytes, most);
+  return (int)split_clusters<32>(csize, wmax, stage_bytes, most);
 }
 
 extern "C" const char* ionflux_error_string(int err) {

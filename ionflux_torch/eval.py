@@ -46,10 +46,12 @@ from ionflux_torch.ops.fused_solve import (
     _dense_eval_popsweep_ft,
     _rest,
     _time_on,
+    _trip_solve_cuda,
     fused_nnf_popsweep_chained,
     fused_nnf_popsweep_solve_ft,
     fused_nnf_solve_ft,
     popsweep_plan,
+    weight_stream_bytes,
 )
 from ionflux_torch.solver import (odeint, odeint_adams, odeint_chained,
                                   odeint_rosenbrock, odeint_vcabm)
@@ -548,12 +550,15 @@ def population_rollout_maes(kind: str, pop_params, names: list[str],
     each segment's executed and accepted trips on the device, graph or
     not; the fetch reads them with the sums and records them as the counts
     ``b1.trips_executed`` and ``b1.trips_accepted`` (``segment=b``).  Beside
-    them it records, from the launch's plan (``popsweep_plan``: the pass the
-    card's launch takes, recorded on the CPU too; a replay's is the plan
-    stored with its graph), ``b1.column_passes`` (the ring's passes over
-    the widest layer; 0 where the launch takes mlp()) and
-    ``b1.stream_bytes`` (the packed member weights one right-hand side
-    reads, padding included: the ring's rows, or mlp()'s own weights)."""
+    them it records, from the pass the launch took (on the card
+    ``_trip_solve_cuda.last_pass``, host data read with no synchronisation;
+    a replay's is the one its capture took, stored with its graph; on the
+    CPU ``popsweep_plan``'s), ``b1.column_passes`` (the ring's
+    passes over the widest layer, or slice where split; 0 where the launch
+    takes mlp()), ``b1.stream_bytes`` (the packed member weights one
+    right-hand side reads, padding included: the ring's rows, every rank's
+    where split, or mlp()'s own weights) and ``b1.cluster_blocks`` (the
+    blocks of a cluster that split a member's columns; 1 unsplit)."""
     nets, rg, hh = _pop_split(kind, pop_params)
     dev = nets[0][0].device
     p_mem = nets[0][0].shape[0]
@@ -606,8 +611,12 @@ def population_rollout_maes(kind: str, pop_params, names: list[str],
                 return acc, mask, torch.stack(n_out).view(-1, 2)
 
             sizes = [nets[0][0].shape[1]] + [w.shape[2] for w, _ in nets]
-            _, info, stream = popsweep_plan(p_mem, q_req, sizes)
-            plan = (info.get("column_passes", 0), stream)
+
+            def b1_plan(info):
+                return (info.get("column_passes", 0),
+                        weight_stream_bytes(sizes, p_mem, info),
+                        info.get("cluster_size", 1))
+
             inputs = [torch.as_tensor(x, device=dev)
                       for x in (seg_v, vsegs, tsegs, wsegs)]
             inputs += [x for layer in nets for x in layer]
@@ -631,10 +640,12 @@ def population_rollout_maes(kind: str, pop_params, names: list[str],
             with span("rollout.capture"):
                 acc, mask, n_trips = chain(*inputs)
                 g = Graph(chain, *[x.clone() for x in inputs])
-                g.plan = plan
+                g.plan = plan = b1_plan(_trip_solve_cuda.last_pass)
                 _ROLLOUT_GRAPHS[key] = g
         else:
             acc, mask, n_trips = chain(*inputs)
+            plan = b1_plan(_trip_solve_cuda.last_pass if dev.type == "cuda"
+                           else popsweep_plan(p_mem, q_req, sizes)[1])
         with span("rollout.fetch"):
             sums = acc.cpu().numpy().astype(np.float64)
             alive = mask.cpu().numpy()
@@ -643,4 +654,5 @@ def population_rollout_maes(kind: str, pop_params, names: list[str],
                 count("b1.trips_accepted", accepted, segment=b)
                 count("b1.column_passes", plan[0], segment=b)
                 count("b1.stream_bytes", plan[1], segment=b)
+                count("b1.cluster_blocks", plan[2], segment=b)
     return np.where(alive, sums / counts[None, :], np.inf)

@@ -141,6 +141,10 @@ _SIGNATURES = {
                                                 # geometry, floats per rank
             _PTR,                               # stream
         ],
+        "ionflux_ring_split_clusters": [
+            _I32, _I32, _I32, _I32,             # rt, csize, wmax, stage
+            ctypes.POINTER(ctypes.c_int),       # the clusters held (out)
+        ],
     },
     "hh_solve": {
         "ionflux_hh_trip_solve": [

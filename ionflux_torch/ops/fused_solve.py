@@ -39,6 +39,7 @@ can be held against them on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -143,9 +144,12 @@ class _Setup:
                           # or the sweeps' (see csrc/fused_solve.cu)
     q_real: int = 0       # rows before the popsweep's padding (0: all); the
                           # ring pass copies the padded rows' MLP outputs
-    cluster: int = -1     # the sweeps' layer pass on the card: -1 as
-                          # sweep_cluster's size rule picks it, 0 mlp(),
-                          # C > 1 the cluster pass on clusters of C blocks
+    cluster: int = -1     # the layer pass's clusters on the card: -1 as
+                          # the size rule picks them (sweep_cluster for the
+                          # sweeps, ring_split for the ring launches); the
+                          # sweeps 0 mlp(), C > 1 the cluster pass on
+                          # clusters of C blocks; the ring launches 0 or 1
+                          # unsplit, C > 1 the split ring pass at C
 
 
 def _gate_tuples(rgate: HHParams, base_hh: HHParams | None):
@@ -497,8 +501,13 @@ def ring_geometry(sizes, bf16: bool, stage_cap: int = RING_STAGE_BYTES):
     the kernel's B-fragment loads from the stage hit distinct banks).  A
     chunk is one contiguous block, copied whole into a stage; chunks are
     balanced over k and fit a stage of ``stage_cap`` bytes."""
+    return _ring_layout(zip(sizes[:-1], sizes[1:]), bf16, stage_cap)
+
+
+def _ring_layout(shapes, bf16: bool, stage_cap: int):
+    """``ring_geometry`` of layers of (in, out) ``shapes``."""
     geom, off, stage = [], 0, 16
-    for d_in, d_out in zip(sizes[:-1], sizes[1:]):
+    for d_in, d_out in shapes:
         if bf16:   # k in mma steps of 16
             cols, depth = _round_up(d_out, 8), _round_up(d_in, 16)
             most = (stage_cap // (2 * cols) - 8) // 16 * 16
@@ -544,6 +553,177 @@ def _ring_pack(layers, bf16: bool, stage_cap: int = RING_STAGE_BYTES):
     packed = torch.cat(parts, dim=1)
     return ((packed.to(torch.bfloat16) if bf16 else packed).contiguous(),
             geom, stage)
+
+
+# The split ring pass (B1's popsweep in f32 where the widest layer takes
+# more than one column pass): a (member, row tile) on a cluster of C blocks,
+# each
+# streaming its own column slice of every hidden layer (csrc/fused_solve.cu,
+# mlp_ring_split).  The sizes the rule tries, largest first.
+RING_SPLIT_SIZES = (4, 3, 2)
+
+
+def ring_split_columns(sizes, csize: int) -> list[int]:
+    """Columns a block of the split ring pass at ``csize`` blocks takes of
+    each layer: layer 0 (2 inputs) and the last (one output) whole,
+    round4(out), in every block; every other layer ceil(out / csize)
+    rounded up to 4 (the f32 tile's column group), block q owning columns
+    [q cols, (q + 1) cols)."""
+    last = len(sizes) - 2
+    return [_round_up(d_out if l in (0, last) else -(-d_out // csize), 4)
+            for l, d_out in enumerate(sizes[1:])]
+
+
+def ring_split_geometry(sizes, csize: int, stage_cap: int):
+    """``ring_geometry`` of one rank's row of the split ring pass (f32):
+    layer l as k-rows of [in, ``ring_split_columns``' cols], in chunks of at
+    most ``stage_cap`` bytes; every rank's row has this one layout."""
+    cols = ring_split_columns(sizes, csize)
+    return _ring_layout(zip(sizes[:-1], cols), False, stage_cap)
+
+
+def _ring_split_pack(layers, csize: int, stage_cap: int = RING_STAGE_BYTES):
+    """Each member's float32 weights as ``csize`` packed rows for the split
+    ring pass, [P csize, stride] (rank q of member m at row m csize + q):
+    layer 0 and the last whole in every rank, as ``_ring_pack`` lays them
+    out; every other layer rank q's columns [q cols, (q + 1) cols), [in,
+    cols] row-major; zero in every padding.  With ``ring_split_geometry``'s
+    geometry and stage bytes, and the columns per layer."""
+    p = layers[0][0].shape[0]
+    sizes = [layers[0][0].shape[1]] + [w.shape[2] for w, _ in layers]
+    cols = ring_split_columns(sizes, csize)
+    geom, stride, stage = ring_split_geometry(sizes, csize, stage_cap)
+    w0 = layers[0][0]
+    out = torch.zeros((p, csize, stride), dtype=torch.float32,
+                      device=w0.device)
+    for (w, _), (off, _, _), c in zip(layers, geom, cols):
+        d_in, d_out = w.shape[1:]
+        ranks = 1 if c >= d_out else csize      # whole, or sliced
+        wp = torch.zeros((p, d_in, ranks * c), dtype=w.dtype,
+                         device=w.device)
+        wp[:, :, :d_out] = w
+        out[:, :, off:off + d_in * c] = wp.reshape(
+            p, d_in, ranks, c).transpose(1, 2).reshape(p, ranks, d_in * c)
+    return out.reshape(p * csize, stride), geom, stage, cols
+
+
+def ring_split_smem_bytes(row_tile: int, wmax: int, stage: int) -> int:
+    """Dynamic shared memory of one block of the split ring pass: the
+    ring's stages, two exchange buffers [round16(wmax), RT + 4], the
+    layer-0 input and the output [2, RT + 4] each, and the lane state, as
+    csrc/fused_solve.cu's Smem lays them out."""
+    rt = _tile_rt(row_tile)
+    rts = rt + 4
+    return (RING_STAGES * stage
+            + 4 * (2 * _round_up(wmax, 16) * rts + 2 * 2 * rts + 7 * rt * 2
+                   + 3 * rt * 2 + 2 * rt) + 4 * 2 * rt)
+
+
+def ring_split_fits(row_tile: int, sizes, csize: int) -> bool:
+    """Whether the split ring pass takes a net of layer widths ``sizes`` at
+    ``row_tile`` rows a block on clusters of ``csize`` blocks: 8 or more
+    rows (the kernel's 8-, 16- and 32-row instantiations), at least one
+    hidden layer, each hidden layer wider than its slice, each slice in one
+    pass of the block's threads (the kernel keeps no running sums of a
+    sliced layer in shared memory), every chunk in a stage, and the stages
+    and buffers in a block's shared memory."""
+    rt = _tile_rt(row_tile)
+    if rt < 8 or len(sizes) < 4 or not ring_fits(rt, sizes, False):
+        return False
+    cols = ring_split_columns(sizes, csize)
+    groups = rt // 2                               # row groups (ring_tr)
+    per_pass = -(-groups * 64 // 256) * 256        # NT * kThreads tasks
+    if any(c >= d or groups * (c // 4) > per_pass
+           for c, d in zip(cols[1:-1], sizes[2:-1])):
+        return False
+    cap = _ring_cap(rt, sizes, False)
+    _, _, stage = ring_split_geometry(sizes, csize, cap)
+    return (all(4 * c <= cap for c in cols)
+            and ring_split_smem_bytes(rt, max(sizes), stage)
+            <= _SMEM_BYTES - _SMEM_STATIC)
+
+
+def ring_split(sizes, p: int, tiles: int, info: dict, bf16: bool,
+               clusters: dict) -> int:
+    """The size rule of the split ring pass, a pure function of what the
+    code can observe: the blocks per cluster of a population launch of
+    ``p`` members in ``tiles`` row tiles whose pass ``population_pass``
+    gave as ``info``.  C > 1 only for an f32 ring launch at the kernel's
+    8-, 16- or 32-row instantiation (B1's popsweep) whose widest layer
+    takes more than one column pass (past 256 columns): there one block
+    walks every chunk of its member once a pass, and a slice of the
+    columns takes one pass of each block's threads.  A net whose layers
+    fit one pass keeps the unsplit pass: its k-sums are as long split, and
+    the exchanges only add to them.  (On the H100, PERF.md: 500-wide
+    members 2.0-3.3x faster split, 200-wide 6-15% slower, whether the
+    population fits the L2 or not.)
+    Then C is the largest of ``RING_SPLIT_SIZES`` that takes the net
+    (``ring_split_fits``) and for which the card holds all the launch's p
+    tiles clusters at once (``clusters`` {C: the clusters of the split
+    kernel the card holds}).  Otherwise 1, the unsplit ring pass: bf16,
+    the one-row population solve (B4), mlp(), and nets of one pass."""
+    if (info["layer_pass"] != "ring" or bf16
+            or _tile_rt(info["row_tile"]) < 8 or info["column_passes"] < 2):
+        return 1
+    return next((c for c in RING_SPLIT_SIZES
+                 if ring_split_fits(info["row_tile"], sizes, c)
+                 and clusters.get(c, 0) >= p * tiles), 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_clusters(index: int, row_tile: int, csize: int, wmax: int,
+                    stage: int) -> int:
+    """The clusters of ``csize`` blocks of the split ring kernel, at its
+    shared memory for these widths, that card ``index`` holds at once
+    (cudaOccupancyMaxActiveClusters); asked once per device and shape."""
+    from ionflux_torch.ops._build import load_library
+
+    lib = load_library("fused_solve")
+    most = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.ionflux_ring_split_clusters(
+            _tile_rt(row_tile), csize, wmax, stage, ctypes.byref(most))
+    if err != 0:
+        raise RuntimeError(f"the split ring pass's occupancy query failed: "
+                           f"{lib.ionflux_error_string(err).decode()}")
+    return most.value
+
+
+def _ring_split_pass(sizes, p: int, tiles: int, info: dict, bf16: bool,
+                     device, cluster: int = -1) -> int:
+    """The blocks per cluster of a population launch: ``ring_split`` on the
+    clusters the card holds (asked only where the rule could split), 1 off
+    the card; or what ``cluster`` forces (0 or 1 unsplit, C > 1 the split
+    at C; raises where C does not take the launch)."""
+    if cluster >= 0:
+        if cluster > 1 and not (info["layer_pass"] == "ring" and not bf16
+                                and ring_split_fits(info["row_tile"], sizes,
+                                                    cluster)):
+            raise ValueError(f"the split ring pass at C = {cluster} does not "
+                             f"take this launch")
+        return max(cluster, 1)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    rt = info.get("row_tile", 1)
+    if ring_split(sizes, p, tiles, info, bf16,
+                  dict.fromkeys(RING_SPLIT_SIZES, p * tiles)) == 1:
+        return 1
+    cap = _ring_cap(rt, sizes, False)
+    clusters = {c: _split_clusters(
+        index, rt, c, max(sizes), ring_split_geometry(sizes, c, cap)[2])
+        for c in RING_SPLIT_SIZES if ring_split_fits(rt, sizes, c)}
+    return ring_split(sizes, p, tiles, info, bf16, clusters)
+
+
+def _split_info(info: dict, csize: int) -> dict:
+    """``population_pass``'s dict for a launch split over clusters of
+    ``csize`` blocks: one column pass (``ring_split_fits``) and the cluster
+    size; unchanged unsplit."""
+    return info if csize <= 1 else dict(info, column_passes=1,
+                                        cluster_size=csize)
 
 
 # The sweeps' cluster pass (B2, B6): clusters of CLUSTER_SIZE blocks, the
@@ -647,15 +827,19 @@ def launch_plan(s: _Setup) -> tuple[int, dict]:
     """How a trip launch runs on the card: the rows per thread block (or
     cluster) and the layer pass, by the stated rules.  The popsweep and the
     population solve take ``population_pass``'s (the ring, or mlp() for
-    layers too wide for it); the sweep takes ``sweep_cluster``'s pass (or
+    layers too wide for it), the ring split over clusters where
+    ``ring_split`` says so; the sweep takes ``sweep_cluster``'s pass (or
     what ``s.cluster`` forces).  The dict names the pass: {"layer_pass":
-    "ring", "row_tile", "column_passes"}, {"layer_pass": "mlp", "row_tile"}
-    or ``_pass_info``'s fields."""
+    "ring", "row_tile", "column_passes"} (and "cluster_size" where the ring
+    is split), {"layer_pass": "mlp", "row_tile"} or ``_pass_info``'s
+    fields."""
     p, q = s.y0.shape[:2]
     sizes = [s.layers[0][0].shape[1]] + [w.shape[2] for w, _ in s.layers]
     row_tile = min(MAX_ROW_TILE, q // s.q_split)
     if s.ring:
-        return population_pass(row_tile, sizes, s.bf16)
+        rt, info = population_pass(row_tile, sizes, s.bf16)
+        return rt, _split_info(info, _ring_split_pass(
+            sizes, p, -(-q // rt), info, s.bf16, s.vpad.device, s.cluster))
     return row_tile, _pass_info(_sweep_pass(s, row_tile),
                                 p * -(-q // row_tile))
 
@@ -664,13 +848,16 @@ def weight_stream_bytes(sizes, p: int, info: dict) -> int:
     """Bytes of packed float32 member weights that one right-hand side of a
     population launch reads, for ``population_pass``'s pass ``info``,
     padding included, biases not: the ring's rows (``ring_geometry``'s
-    stride at the launch's stage cap) or mlp()'s row-major W0, W1, ..., for
-    each of the ``p`` members.  The cluster pass serves the sweeps only,
-    never these launches."""
+    stride at the launch's stage cap; split over clusters, every rank's
+    row, so a layer every rank holds whole counts once a rank) or mlp()'s
+    row-major W0, W1, ..., for each of the ``p`` members.  The cluster pass
+    serves the sweeps only, never these launches."""
     if info["layer_pass"] == "ring":
-        _, stride, _ = ring_geometry(
-            sizes, False, _ring_cap(info["row_tile"], sizes, False))
-        return 4 * p * stride
+        cap = _ring_cap(info["row_tile"], sizes, False)
+        csize = info.get("cluster_size", 1)
+        if csize > 1:
+            return 4 * p * csize * ring_split_geometry(sizes, csize, cap)[1]
+        return 4 * p * ring_geometry(sizes, False, cap)[1]
     return 4 * p * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
 
 
@@ -683,7 +870,9 @@ def popsweep_plan(p: int, q_req: int, sizes) -> tuple[int, dict, int]:
     """``launch_plan`` of a float32 popsweep launch of ``p`` members on
     ``q_req`` protocol rows (no ``q_split``), from the shapes alone (no
     setup, no launch), and the bytes of member weights one right-hand side
-    of it streams (``weight_stream_bytes``): (row tile, pass, bytes)."""
+    of it streams (``weight_stream_bytes``): (row tile, pass, bytes).  The
+    launch off the card: whether the card splits the ring over clusters is
+    ``launch_plan``'s to decide, and ``_trip_solve_cuda.last_pass`` says."""
     sizes = list(sizes)
     rt, info = population_pass(min(MAX_ROW_TILE, _popsweep_rows(q_req)),
                                sizes, False)
@@ -691,16 +880,19 @@ def popsweep_plan(p: int, q_req: int, sizes) -> tuple[int, dict, int]:
 
 
 def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE,
-                   layer_pass: str | None = None):
+                   layer_pass: str | None = None, split: int = 1):
     """What both CUDA entry points take besides the outputs: the weights as
     one flat row per member (bf16 when ``s.bf16``): W0, W1, ... row-major
-    [in, out] for mlp(), ``_ring_pack``'s layout for the ring, or
-    ``_cluster_pack``'s rows for the sweeps' cluster pass; the ring's
-    geometry (or None), the biases in f32, the layer widths, the 16 scalars
-    and the cluster pass's (blocks per cluster, geometry, floats per rank),
-    (0, None, 0) for the other passes.  ``row_tile`` sizes the ring's
-    stages and decides the sweeps' pass; ``launch_plan`` gives it and the
-    ``layer_pass`` (by default the ring for the population launches)."""
+    [in, out] for mlp(), ``_ring_pack``'s layout for the ring (``split``
+    rows per member, ``_ring_split_pack``'s, where the ring is split over
+    clusters of ``split`` blocks), or ``_cluster_pack``'s rows for the
+    sweeps' cluster pass; the ring's geometry (or None), the biases in f32,
+    the layer widths, the 16 scalars and the cluster pass's (blocks per
+    cluster, geometry, floats per rank), for the split ring (blocks per
+    cluster, (0, columns) per layer, 0), (0, None, 0) for the other passes.
+    ``row_tile`` sizes the ring's stages and decides the sweeps' pass;
+    ``launch_plan`` gives it, the ``layer_pass`` (by default the ring for
+    the population launches) and the split."""
     if len(s.layers) > 16:
         raise ValueError("the CUDA kernel takes at most 16 layers")
     p = s.y0.shape[0]
@@ -712,9 +904,13 @@ def _kernel_inputs(s: _Setup, row_tile: int = MAX_ROW_TILE,
         if not ring_fits(row_tile, sizes, s.bf16):
             raise ValueError(f"the ring pass does not take this net at "
                              f"{row_tile} rows: use launch_plan's tile")
-        # exact in bf16: the setup rounded the weights
-        wflat, geom, stage = _ring_pack(
-            s.layers, s.bf16, _ring_cap(row_tile, sizes, s.bf16))
+        cap = _ring_cap(row_tile, sizes, s.bf16)
+        if split > 1:
+            wflat, geom, stage, cols = _ring_split_pack(s.layers, split, cap)
+            cluster = (split, (ctypes.c_int * (2 * len(cols)))(
+                *[x for c in cols for x in (0, c)]), 0)
+        else:   # exact in bf16: the setup rounded the weights
+            wflat, geom, stage = _ring_pack(s.layers, s.bf16, cap)
         ring = ((ctypes.c_int * (3 * len(geom)))(*sum(geom, ())), stage)
     elif csize:
         wflat, geom, stride = _cluster_pack(s.layers, csize)
@@ -745,14 +941,15 @@ def _trip_solve_cuda(s: _Setup):
     result does not depend on the tiling; ``launch_plan`` picks it).  Raises
     on a refused launch; never synchronises.  ``_trip_solve_cuda.last_pass``
     names the layer pass the launch took: its row tile and column passes
-    (the ring), or its cluster size and clusters (the sweeps)."""
+    (the ring; and its cluster size where split), or its cluster size and
+    clusters (the sweeps)."""
     from ionflux_torch.ops._build import launch
 
     dev = s.vpad.device
     p, q = s.y0.shape[:2]
     row_tile, info = launch_plan(s)
     wflat, ring, bflat, c_sizes, scal, cluster = _kernel_inputs(
-        s, row_tile, info["layer_pass"])
+        s, row_tile, info["layer_pass"], info.get("cluster_size", 1))
     geom, stage = ring if ring else (None, 0)
     grid = p * -(-q // row_tile)     # blocks, or clusters
     rec_sc = torch.empty((s.trips, 2), dtype=torch.float32, device=dev)

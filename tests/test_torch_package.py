@@ -631,15 +631,21 @@ def test_ring_pass_copies_padded_rows_bit_for_bit_on_card(card, q, mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["popsweep", "bf16", "population"])
-def test_ring_pass_takes_500_wide_members_on_card(card, entry):
+def test_ring_pass_takes_500_wide_members_on_card(card, entry,
+                                                  monkeypatch):
     """The registry's 500-wide architecture (s07: Linear(2, 500), Linear(500,
     500), Linear(500, 1)) as a 4-member population: more columns than one
     pass of the ring's threads covers, so each chunk takes two passes with
     the running sums parked in shared memory (one at one row per block).
+    In f32 the popsweep's size rule splits each member over a cluster of 4
+    blocks, one pass each; the unsplit two-pass launch, forced through
+    ``_Setup.cluster``, gives the same gates bit for bit.
     Kernel against plain within 5e-3 on the gates, in f32 and bf16 and
     through the population solve.  In bf16 a 1,000-wide net, past the ring
     pass's widest layer, takes the mlp() pass (launch_plan's second
     branch) at 16-row tiles, within 5e-3 of plain too."""
+    import dataclasses
+
     nets = [(w * (16 / 500) ** 0.5, b) for w, b in _net(
         seed=5, members=4, sizes=(2, 500, 500, 1), device=card)]
     ts = torch.arange(50.0, 8000.0, 100.0, device=card)
@@ -656,8 +662,21 @@ def test_ring_pass_takes_500_wide_members_on_card(card, entry):
         kw["mxu_bf16"] = entry == "bf16"
         ys_k = TK.fused_nnf_popsweep_solve_ft(nets, TR.HH_B06, v, ts, **kw)
         torch.cuda.synchronize()
-        assert TK._trip_solve_cuda.last_pass == dict(
-            layer_pass="ring", row_tile=16, column_passes=2)
+        unsplit = dict(layer_pass="ring", row_tile=16, column_passes=2)
+        if entry == "bf16":
+            assert TK._trip_solve_cuda.last_pass == unsplit
+        else:
+            assert TK._trip_solve_cuda.last_pass == dict(
+                unsplit, column_passes=1, cluster_size=4)
+            setup = TK._popsweep_setup
+            monkeypatch.setattr(TK, "_popsweep_setup", lambda *a, **k:
+                                dataclasses.replace(setup(*a, **k),
+                                                    cluster=1))
+            ys_1 = TK.fused_nnf_popsweep_solve_ft(nets, TR.HH_B06, v, ts,
+                                                  **kw)
+            torch.cuda.synchronize()
+            assert TK._trip_solve_cuda.last_pass == unsplit
+            assert torch.equal(ys_1, ys_k)
         ys_p = TK.fused_nnf_popsweep_solve_ft_plain(nets, TR.HH_B06, v, ts,
                                                     **kw)
     assert bool(torch.isfinite(ys_p).all())
